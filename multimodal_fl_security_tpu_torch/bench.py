@@ -6,7 +6,9 @@ epochs at batch 32 (38 SGD steps per client per round), SimpleCNN in bf16
 compute, then Krum (f=20) over the stacked [100, 421,642] f32 update matrix.
 The synthetic task is the JAX bench's recipe: 10 uniform class prototypes
 plus 0.35 Gaussian noise, one channel, built on the device from a
-``torch.Generator``.
+``torch.Generator``. ``build_engine`` also takes another defense, an
+in-round attack and a number of malicious clients, for the robust rounds
+that ``chip_smoke.py`` drives at the same width.
 
 Run on a CUDA card::
 
@@ -22,7 +24,7 @@ import json
 import math
 import subprocess
 import time
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,10 +51,20 @@ def synthetic_images(labels: torch.Tensor, protos: torch.Tensor,
 
 
 def build_engine(device, num_clients: int = NUM_CLIENTS,
-                 samples_per_client: int = SAMPLES_PER_CLIENT):
+                 samples_per_client: int = SAMPLES_PER_CLIENT,
+                 defense: str = "krum",
+                 defense_config: Optional[Dict[str, Any]] = None,
+                 attack: str = "none",
+                 attack_config: Optional[Dict[str, Any]] = None,
+                 num_malicious_clients: int = 0):
     """Build ``(engine, params, test_set)`` for the north-star workload on
     ``device``. ``num_clients`` and ``samples_per_client`` shrink it for a
-    CPU rehearsal; the bench runs the defaults."""
+    CPU rehearsal; the bench runs the defaults.
+
+    ``defense`` and ``attack`` are registry names with their configs;
+    clients ``0 .. num_malicious_clients-1`` are malicious. The defaults
+    build the north-star Krum round (f=20, k=1) with no attack."""
+    from multimodal_fl_security_tpu_torch.attacks import get_attack
     from multimodal_fl_security_tpu_torch.data.stacking import ClientData
     from multimodal_fl_security_tpu_torch.defenses import get_defense
     from multimodal_fl_security_tpu_torch.models import create_model, init_model
@@ -88,25 +100,29 @@ def build_engine(device, num_clients: int = NUM_CLIENTS,
     params = init_model(model, in_channels=1, seed=0, device=device)
     spec = TrainSpec(learning_rate=0.01, local_epochs=LOCAL_EPOCHS,
                      batch_size=BATCH_SIZE)
+    if defense_config is None and defense == "krum":
+        defense_config = {"num_malicious": NUM_MALICIOUS, "multi_k": 1}
     engine = RoundEngine(
         model, client_data, spec,
-        defense=get_defense("krum", {"num_malicious": NUM_MALICIOUS,
-                                     "multi_k": 1}),
+        attack=get_attack(attack, attack_config),
+        defense=get_defense(defense, defense_config),
+        malicious_clients=list(range(num_malicious_clients)),
     )
     return engine, params, test_set
 
 
-def logical_flops_per_round() -> float:
+def logical_flops_per_round(with_gram: bool = True) -> float:
     """Analytic FLOPs of one north-star round, as ``bench.py`` counts them:
     SimpleCNN's per-sample forward at 28x28x1, backward ~2x forward, plus
-    Krum's Gram (2*C^2*D, D = 421,642). Padding rows are not counted."""
+    (``with_gram``) Krum's Gram (2*C^2*D, D = 421,642). Padding rows are not
+    counted."""
     conv1 = 2 * 3 * 3 * 1 * 32 * 28 * 28
     conv2 = 2 * 3 * 3 * 32 * 64 * 14 * 14
     fc1 = 2 * 3136 * 128
     fc2 = 2 * 128 * 10
     fwd = conv1 + conv2 + fc1 + fc2
     train = 3.0 * fwd * NUM_CLIENTS * LOCAL_EPOCHS * SAMPLES_PER_CLIENT
-    return train + 2.0 * NUM_CLIENTS * NUM_CLIENTS * 421_642
+    return train + with_gram * 2.0 * NUM_CLIENTS * NUM_CLIENTS * 421_642
 
 
 def time_rounds(engine, params: torch.Tensor, generator: torch.Generator,
@@ -132,12 +148,16 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def result_line(n_rounds: int, seconds: float) -> Dict:
-    """``bench.py``'s JSON schema, plus the card it ran on."""
+def result_line(n_rounds: int, seconds: float,
+                metric: str = "fl_rounds_per_min_100c_krum",
+                with_gram: bool = True) -> Dict:
+    """``bench.py``'s JSON schema, plus the card it ran on. ``with_gram``
+    counts a Gram's FLOPs in ``mfu_logical`` (Krum and Bulyan have one)."""
     rounds_per_min = n_rounds / seconds * 60.0
-    mfu = logical_flops_per_round() * (n_rounds / seconds) / PEAK_FLOPS
+    mfu = (logical_flops_per_round(with_gram) * (n_rounds / seconds)
+           / PEAK_FLOPS)
     return {
-        "metric": "fl_rounds_per_min_100c_krum",
+        "metric": metric,
         "value": rounds_per_min,
         "unit": "rounds/min",
         "vs_baseline": rounds_per_min / BASELINE_ROUNDS_PER_MIN,

@@ -1,4 +1,5 @@
-"""Robust aggregation defenses (FedAvg and Krum so far).
+"""Robust aggregation defenses: FedAvg, Krum / Multi-Krum, trimmed mean,
+coordinate median, geometric median and Bulyan so far.
 
 Registry names match the JAX package's; every defense's
 ``aggregate(updates [C, D], weights [C], ctx)`` runs on the updates' device.
@@ -11,3 +12,5 @@ from multimodal_fl_security_tpu_torch.defenses.base import (  # noqa: F401
     get_defense,
 )
 from multimodal_fl_security_tpu_torch.defenses import krum  # noqa: F401
+from multimodal_fl_security_tpu_torch.defenses import trimmed_mean  # noqa: F401
+from multimodal_fl_security_tpu_torch.defenses import bulyan  # noqa: F401

@@ -52,6 +52,9 @@ class BaseDefense:
         return torch.zeros(updates.shape[0], dtype=torch.float32,
                            device=updates.device)
 
+    def get_metrics(self) -> Dict[str, Any]:
+        return {"defense_type": self.name}
+
 
 @DEFENSES.register("none", "fedavg")
 class NoDefense(BaseDefense):

@@ -76,6 +76,13 @@ class KrumDefense(BaseDefense):
         _, aux = self.aggregate_with_aux(updates, weights, ctx)
         return 1.0 - aux["selected_mask"]
 
+    def get_metrics(self) -> Dict[str, Any]:
+        return {
+            "defense_type": self.name,
+            "num_malicious": self.num_malicious,
+            "multi_k": self.multi_k,
+        }
+
 
 @DEFENSES.register("krum")
 def _make_krum(config):

@@ -101,5 +101,6 @@ def test_fedavg_matches_jax(name):
 def test_registry_names_match_jax():
     assert get_defense("multi_krum").multi_k == 3 == \
         jax_get_defense("multi_krum").multi_k
+    assert get_defense("median").name == jax_get_defense("median").name
     with pytest.raises(ValueError, match="unknown defense"):
-        get_defense("median")  # not ported yet
+        get_defense("foolsgold")  # not ported yet
