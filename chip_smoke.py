@@ -9,8 +9,8 @@ paths and fails loudly on anything wrong. Phases, in order:
 1. Device: a CUDA card of compute capability 9.0; prints its name and
    power limit as ``nvidia-smi`` reports them. TF32 is switched off for
    matmuls and convolutions, so f32 comparisons are f32.
-2. Build: compiles ``csrc/gram.cu`` and ``csrc/sorted_reduce.cu`` with nvcc
-   for sm_90a, both at once (timed; registers, shared memory and spills).
+2. Build: compiles every ``csrc/*.cu`` with nvcc for sm_90a, one process
+   each, all at once (timed; registers, shared memory and spills).
 3. Gram kernel against its plain version at the main path's
    [100, 421,642] and at ragged shapes. Requires max|G_kernel - G_plain|
    <= 1e-5 * max|G_plain|, the same Krum pick from both, and two kernel
@@ -32,6 +32,21 @@ paths and fails loudly on anything wrong. Phases, in order:
    round (and one Gram launch per round in R4), the first round's
    aggregate through the kernels equal to the plain versions' on the same
    update matrix, and test accuracy > 0.5 after R1 and R2.
+
+7. Fused local training (the K3/K4 slice), at the north star's width:
+   (a) each kernel of ``csrc/client_conv.cu``, ``client_dense.cu`` and
+   ``client_sgd.cu`` against its plain version on one step's real
+   activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
+   and backward; CE; SGD at [100, 421,642]) and K3's raw stem conv at
+   [100, 32, 28*28*8] x [100, 4, 4, 8, 128], in f32 with TF32 off (max
+   |kernel - plain| <= 1e-5 * max|plain|) and in bf16 (<= 1e-2 * max|plain|,
+   one rounding apart), timed in turns with CUDA events beside the one
+   PyTorch call that computes the same product (cuDNN, ``baddbmm``);
+   (b) ``fused_kernel_bench.run_check()`` (kernel path against
+   ``mirror_local_train`` within 1e-4 at f32); (c) ``run_bench()`` at full
+   width in bf16: finite parameters, 12 launches per step x 38 steps, two
+   calls bitwise equal, FedAvg test accuracy > 0.5; prints the kernel
+   path's, the mirror's and the engine trainer's ms per call.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -72,6 +87,21 @@ ROBUST_RUNS = [
      "min_max", {"perturbation": "std"}, 0, 2),
 ]
 MIN_ACCURACY = {"R1": 0.5, "R2": 0.5}
+#: H100 SXM data sheet, dense, at a 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+#: each local-training kernel's source, by its wrapper's name prefix
+FUSED_SOURCES = {prefix: f"multimodal_fl_security_tpu_torch/csrc/{src}.cu"
+                 for prefix, src in (("conv", "client_conv"),
+                                     ("dense", "client_dense"),
+                                     ("client", "client_sgd"))}
+K3_REPLACES = "multimodal_fl_security_tpu/ops/client_conv.py:97"
+K4_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:307"
+#: max|kernel - plain| allowed over max|plain|: f32 with TF32 off (the same
+#: products summed in another order) and bf16 (outputs one rounding apart)
+FUSED_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FUSED_CHECK_ATOL = 1e-4
+FUSED_MIN_ACCURACY = 0.5
 
 
 def phase_device() -> str:
@@ -92,7 +122,14 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from multimodal_fl_security_tpu_torch.ops import _build, gram, sorted_reduce
+    from multimodal_fl_security_tpu_torch.ops import (
+        _build,
+        client_conv,
+        client_dense,
+        client_sgd,
+        gram,
+        sorted_reduce,
+    )
 
     def build(name):
         t0 = time.perf_counter()
@@ -100,17 +137,34 @@ def phase_build() -> None:
         return path, log, time.perf_counter() - t0
 
     # One nvcc per source, all started together.
+    modules = {"gram": gram, "sorted_reduce": sorted_reduce,
+               "client_conv": client_conv, "client_dense": client_dense,
+               "client_sgd": client_sgd}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(build, ["gram", "sorted_reduce"]))
-    gram._library()
-    sorted_reduce._library()
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
+        builds = list(pool.map(build, modules))
+    for module in modules.values():
+        module._library()
     for path, log, seconds in builds:
         print(f"[build] {path.name} in {seconds:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Function prop" in line:
                 print(f"[build] {line.strip()}")
-    print(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] {len(modules)} sources in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def bound(nbytes_moved: float, flops: float,
+          dtype: torch.dtype = torch.float32) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate of ``dtype`` (H100 SXM data sheet)."""
+    t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def krum_pick(g: torch.Tensor) -> int:
@@ -182,11 +236,21 @@ def phase_kernel() -> dict:
     kern_b = time_ms(gram, u)
     plain_b = time_ms(gram_plain, u)
     ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    # The one library call for the same product: a GEMM of the centered U.
+    uc = u - u.mean(dim=0)
+    library_ms = time_ms(lambda x: torch.mm(x, x.T), uc)
+    c, d = u.shape
+    # Bound: U read once, G written once; the C(C+1)/2 distinct dot products
+    # at the f32 rate (the kernel stays off TF32).
+    bound_ms, bound_by = bound(nbytes(u) + 4 * c * c, c * (c + 1) * d)
     print(f"[kernel] gram {MAIN_SHAPE}: kernel {kern_a:.4f} / {kern_b:.4f} ms,"
-          f" plain {plain_a:.4f} / {plain_b:.4f} ms")
+          f" plain {plain_a:.4f} / {plain_b:.4f} ms, torch.mm of the centered"
+          f" U {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    del uc
     return {"name": "gram", "route": "cuda", "source": GRAM_SOURCE,
             "replaces": GRAM_REPLACES, "max_abs_err": main_err,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def sort_trim(c: int) -> int:
@@ -290,9 +354,18 @@ def phase_sorted_reduce_kernel() -> dict:
         del u
     torch.cuda.empty_cache()
     ms, plain_ms = times[MAIN_SHAPE, "trimmed"]
+    # Library calls: torch.sort over the client axis (the trimmed mean has
+    # no single call) and torch.median; the bound is one read of U.
+    library_ms = time_ms(lambda x: torch.sort(x, dim=0), main)
+    median_ms = time_ms(lambda x: torch.median(x, dim=0), main)
+    bound_ms, bound_by = bound(nbytes(main) + 4 * main.shape[1], 0)
+    print(f"[kernel] sorted_reduce {MAIN_SHAPE}: torch.sort {library_ms:.4f}"
+          f" ms, torch.median {median_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
     return {"name": "sorted_reduce", "route": "cuda", "source": SORT_SOURCE,
             "replaces": SORT_REPLACES, "max_abs_err": errs["trimmed"],
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def phase_main_path() -> int:
@@ -485,6 +558,325 @@ def phase_robust_rounds() -> dict:
     return totals
 
 
+def held(what: str, got: torch.Tensor, want: torch.Tensor,
+         dtype: torch.dtype) -> float:
+    """max|got - want|; raises past FUSED_REL_TOL[dtype] * max|want|."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    tol = FUSED_REL_TOL[dtype] * float(want.abs().max())
+    name = "f32" if dtype == torch.float32 else "bf16"
+    print(f"[fused] {what} {name}: max|kernel-plain| {err:.6g} (tolerance "
+          f"{tol:.6g})")
+    if not err <= tol:
+        raise AssertionError(f"{what} {name}: the kernel disagrees with its "
+                             f"plain version: {err} > {tol}")
+    return err
+
+
+def turns(kern, plain, iters: int = 20) -> tuple:
+    """(kernel ms, plain ms): CUDA-event means in turns plain, kernel,
+    kernel, plain."""
+    plain_a = time_ms(lambda _: plain(), None, iters)
+    kern_a = time_ms(lambda _: kern(), None, iters)
+    kern_b = time_ms(lambda _: kern(), None, iters)
+    plain_b = time_ms(lambda _: plain(), None, iters)
+    return (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+
+
+def phase_fused_kernels() -> dict:
+    """7a: every local-training kernel against its plain version on one
+    step's activations at the north star's shapes; returns the rows of the
+    kernels line (without launches) by kernel name."""
+    import torch.nn.functional as F
+
+    from multimodal_fl_security_tpu_torch.bench import build_engine
+    from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+    from multimodal_fl_security_tpu_torch.ops import client_dense as cd
+    from multimodal_fl_security_tpu_torch.ops import client_sgd as cs
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    engine, params, _ = build_engine("cuda")
+    c = engine.num_clients
+    x = engine.arrays["image"][:, :32]  # the first step's batch, in place
+    labels = engine.arrays["label"][:, :32]
+    mask = engine.mask[:, :32].clone()
+    mask[:, -5:] = 0.0  # padded rows, as in the last batch of a pass
+    layout = SimpleCNN().layout(1)
+    gen = torch.Generator("cuda").manual_seed(3)
+    p = params + 0.01 * torch.randn((c, layout.dim), generator=gen,
+                                    device="cuda")  # distinct clients
+    v = layout.views(p)
+    rows, errs, timed = {}, {}, {}
+
+    def bwd(fn, dz, xin, w, b, msk, wdt, gdt, dt):
+        gw, gb = torch.empty_like(w), torch.empty_like(b)
+        return gw, gb, fn(dz, xin, w, gw, gb, mask=msk, wdtype=wdt,
+                          gdtype=gdt, dx_dtype=dt)
+
+    def wgrad(fn, xin, dp, h, arg, w, b, dt):
+        gw, gb = torch.empty_like(w), torch.empty_like(b)
+        fn(xin, dp, h, arg, gw, gb, dtype=dt)
+        return gw, gb
+
+    for dt in (f32, bf16):
+        h1, a1 = cc.conv_fwd(x, v["conv1.weight"], v["conv1.bias"], dtype=dt,
+                             channels_last=True)
+        want, warg = cc.conv_fwd_plain(x, v["conv1.weight"], v["conv1.bias"],
+                                       dtype=dt, channels_last=True)
+        errs["stem", dt] = held("stem fwd [100, 32, 1, 28, 28]", h1, want, dt)
+        h3, a3 = cc.conv_fwd(h1, v["conv2.weight"], v["conv2.bias"], dtype=dt)
+        want, warg3 = cc.conv_fwd_plain(h1, v["conv2.weight"],
+                                        v["conv2.bias"], dtype=dt)
+        errs["conv_fwd", dt] = held("conv2 fwd [100, 32, 32, 14, 14]", h3,
+                                    want, dt)
+        print(f"[fused] argmax agreement: stem "
+              f"{float((a1 == warg).float().mean()):.6f}, conv2 "
+              f"{float((a3 == warg3).float().mean()):.6f}")
+        f3 = h3.view(c, 32, -1)
+        h4 = cd.dense_fwd(f3, v["fc1.weight"], v["fc1.bias"], relu=True,
+                          wdtype=dt, out_dtype=dt)
+        errs["dense_fwd", dt] = held("fc1 fwd [100, 32, 3136]", h4,
+                                     cd.dense_fwd_plain(
+                                         f3, v["fc1.weight"], v["fc1.bias"],
+                                         relu=True, wdtype=dt, out_dtype=dt),
+                                     dt)
+        logits = cd.dense_fwd(h4, v["fc2.weight"], v["fc2.bias"], wdtype=f32,
+                              out_dtype=f32)
+        held("fc2 fwd [100, 32, 128]", logits, cd.dense_fwd_plain(
+            h4, v["fc2.weight"], v["fc2.bias"], wdtype=f32, out_dtype=f32), dt)
+        loss, dl = cs.client_ce(logits, labels, mask)
+        loss_p, dl_p = cs.client_ce_plain(logits, labels, mask)
+        held("ce loss [100]", loss, loss_p, f32)
+        errs["ce", dt] = held("ce dlogits [100, 32, 10]", dl, dl_p, f32)
+        k2 = bwd(cd.dense_bwd, dl, h4, v["fc2.weight"], v["fc2.bias"], h4,
+                 f32, f32, dt)
+        for name, got, ref in zip(("dW", "db", "dx"), k2, bwd(
+                cd.dense_bwd_plain, dl, h4, v["fc2.weight"], v["fc2.bias"],
+                h4, f32, f32, dt)):
+            held(f"fc2 bwd {name}", got, ref, dt)
+        dz4 = k2[2]
+        k1 = bwd(cd.dense_bwd, dz4, f3, v["fc1.weight"], v["fc1.bias"], None,
+                 dt, dt, dt)
+        for name, got, ref in zip(("dW", "db", "dx"), k1, bwd(
+                cd.dense_bwd_plain, dz4, f3, v["fc1.weight"], v["fc1.bias"],
+                None, dt, dt, dt)):
+            errs["dense_bwd", dt, name] = held(f"fc1 bwd {name}", got, ref,
+                                               dt)
+        dh3 = k1[2].view(h3.shape)
+        for name, got, ref in zip(("dW", "db"), wgrad(
+                cc.conv_wgrad, h1, dh3, h3, a3, v["conv2.weight"],
+                v["conv2.bias"], dt), wgrad(
+                cc.conv_wgrad_plain, h1, dh3, h3, a3, v["conv2.weight"],
+                v["conv2.bias"], dt)):
+            errs["conv_wgrad", dt, name] = held(f"conv2 wgrad {name}", got,
+                                                ref, dt)
+        dh1 = cc.conv_dgrad(dh3, h3, a3, v["conv2.weight"], (14, 14),
+                            dtype=dt, channels_last=True)
+        errs["conv_dgrad", dt] = held(
+            "conv2 dgrad [100, 32, 32, 14, 14]", dh1, cc.conv_dgrad_plain(
+                dh3, h3, a3, v["conv2.weight"], (14, 14), dtype=dt), dt)
+        for name, got, ref in zip(("dW", "db"), wgrad(
+                cc.conv_wgrad, x, dh1, h1, a1, v["conv1.weight"],
+                v["conv1.bias"], dt), wgrad(
+                cc.conv_wgrad_plain, x, dh1, h1, a1, v["conv1.weight"],
+                v["conv1.bias"], dt)):
+            held(f"stem wgrad {name}", got, ref, dt)
+        timed[dt] = dict(h1=h1, a1=a1, h3=h3, a3=a3, f3=f3, h4=h4,
+                         logits=logits, dl=dl, dz4=dz4, dh3=dh3, dh1=dh1)
+
+    # The optimizer over the flat [C, D] buffers (f32 only).
+    g = 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
+    partial = cs.client_sq_norm(g)
+    errs["sq_norm", f32] = held("sq_norm [100, 421,642]",
+                                partial.sum(1, keepdim=True),
+                                cs.client_sq_norm_plain(g), f32)
+    mom = 0.1 * torch.randn(p.shape, generator=gen, device="cuda")
+    pk, mk, pp, mp = p.clone(), mom.clone(), p.clone(), mom.clone()
+    opt = dict(lr=0.01, momentum=0.9, clip_norm=1.0)
+    cs.client_sgd_update(pk, mk, g, partial, **opt)
+    cs.client_sgd_update_plain(pp, mp, g, partial, **opt)
+    held("sgd momentum [100, 421,642]", mk, mp, f32)
+    errs["sgd_update", f32] = held("sgd params [100, 421,642]", pk, pp, f32)
+
+    # K3's own function: the raw 4x4 stride-2 stem conv at 8 channels.
+    x3 = torch.randn((c, 32, 28 * 28 * 8), generator=gen, device="cuda")
+    w4 = 0.1 * torch.randn((c, 4, 4, 8, 128), generator=gen, device="cuda")
+    for dt in (f32, bf16):
+        errs["k3", dt] = held("K3 raw stem [100, 32, 6272]",
+                              cc.client_stem_conv(x3.to(dt), w4.to(dt)),
+                              cc.client_stem_conv_plain(x3.to(dt), w4.to(dt)),
+                              dt)
+
+    # Times, at the path's dtype (bf16), with each kernel's bound.
+    t = timed[bf16]
+    w2, b2 = v["conv2.weight"], v["conv2.bias"]
+    w1, b1 = v["fc1.weight"], v["fc1.bias"]
+    xg = cc._grouped(t["h1"]).contiguous()
+    wg = w2.to(bf16).reshape(-1, *w2.shape[2:])
+    dzg = cc._grouped(cc._dense_dz(t["dh3"], t["h3"], t["a3"], 14, 14)
+                      ).to(bf16).contiguous()
+    live3 = int(((t["h3"] > 0) & (t["dh3"] != 0)).sum())
+    live1 = int(((t["h1"] > 0) & (t["dh1"] != 0)).sum())
+    conv2_flops = 2 * c * 32 * 64 * 32 * 9 * 14 * 14
+    x3b, w4b = x3.to(bf16), w4.to(bf16)
+    x3g = cc._grouped(x3b.view(c, 32, 28, 28, 8).permute(0, 1, 4, 2, 3)
+                      ).contiguous()
+    w4g = w4b.permute(0, 4, 3, 1, 2).reshape(-1, 8, 4, 4).contiguous()
+    gw2, gb2 = torch.empty_like(w2), torch.empty_like(b2)
+    gw1, gb1 = torch.empty_like(w1), torch.empty_like(b1)
+    gwc1 = torch.empty_like(v["conv1.weight"])
+    gbc1 = torch.empty_like(v["conv1.bias"])
+    pk2, mk2 = p.clone(), mom.clone()
+    cases = {
+        "conv_fwd": (
+            lambda: cc.conv_fwd(t["h1"], w2, b2, dtype=bf16),
+            lambda: cc.conv_fwd_plain(t["h1"], w2, b2, dtype=bf16),
+            lambda: F.conv2d(xg, wg, b2.to(bf16).reshape(-1), padding=1,
+                             groups=c),
+            nbytes(t["h1"], w2, b2, t["h3"], t["a3"]), conv2_flops, bf16),
+        "conv_wgrad": (
+            lambda: cc.conv_wgrad(t["h1"], t["dh3"], t["h3"], t["a3"], gw2,
+                                  gb2, dtype=bf16),
+            lambda: cc.conv_wgrad_plain(t["h1"], t["dh3"], t["h3"], t["a3"],
+                                        gw2, gb2, dtype=bf16),
+            lambda: torch.nn.grad.conv2d_weight(xg, wg.shape, dzg, padding=1,
+                                                groups=c),
+            nbytes(t["h1"], t["dh3"], t["h3"], t["a3"], w2, b2),
+            2 * live3 * (32 * 9 + 1), bf16),
+        "conv_dgrad": (
+            lambda: cc.conv_dgrad(t["dh3"], t["h3"], t["a3"], w2, (14, 14),
+                                  dtype=bf16, channels_last=True),
+            lambda: cc.conv_dgrad_plain(t["dh3"], t["h3"], t["a3"], w2,
+                                        (14, 14), dtype=bf16),
+            lambda: torch.nn.grad.conv2d_input(xg.shape, wg, dzg, padding=1,
+                                               groups=c),
+            nbytes(t["dh3"], t["h3"], t["a3"], w2, t["dh1"]),
+            2 * live3 * 32 * 9, bf16),
+        "dense_fwd": (
+            lambda: cd.dense_fwd(t["f3"], w1, b1, relu=True, wdtype=bf16,
+                                 out_dtype=bf16),
+            lambda: cd.dense_fwd_plain(t["f3"], w1, b1, relu=True,
+                                       wdtype=bf16, out_dtype=bf16),
+            lambda: torch.baddbmm(b1.to(bf16).unsqueeze(1), t["f3"],
+                                  w1.to(bf16).transpose(1, 2)),
+            nbytes(t["f3"], w1, b1, t["h4"]), 2 * c * 32 * 3136 * 128, bf16),
+        "dense_bwd": (
+            lambda: cd.dense_bwd(t["dz4"], t["f3"], w1, gw1, gb1,
+                                 wdtype=bf16, gdtype=bf16, dx_dtype=bf16),
+            lambda: cd.dense_bwd_plain(t["dz4"], t["f3"], w1, gw1, gb1,
+                                       wdtype=bf16, gdtype=bf16,
+                                       dx_dtype=bf16),
+            None, nbytes(t["dz4"], t["f3"], w1, gw1, gb1, t["f3"]),
+            4 * c * 32 * 3136 * 128, bf16),
+        "client_ce": (
+            lambda: cs.client_ce(t["logits"], labels, mask),
+            lambda: cs.client_ce_plain(t["logits"], labels, mask),
+            None, nbytes(t["logits"], labels, mask, t["dl"]),
+            6 * t["dl"].numel(), f32),
+        "client_sq_norm": (
+            lambda: cs.client_sq_norm(g), lambda: cs.client_sq_norm_plain(g),
+            lambda: torch.linalg.vector_norm(g, dim=1), nbytes(g),
+            2 * g.numel(), f32),
+        "client_sgd_update": (
+            lambda: cs.client_sgd_update(pk2, mk2, g, partial, **opt),
+            lambda: cs.client_sgd_update_plain(pk2, mk2, g, partial, **opt),
+            None, 5 * nbytes(g), 5 * g.numel(), f32),
+    }
+    err_key = {"conv_fwd": ("conv_fwd", f32),
+               "conv_wgrad": ("conv_wgrad", f32, "dW"),
+               "conv_dgrad": ("conv_dgrad", f32),
+               "dense_fwd": ("dense_fwd", f32),
+               "dense_bwd": ("dense_bwd", f32, "dW"),
+               "client_ce": ("ce", f32), "client_sq_norm": ("sq_norm", f32),
+               "client_sgd_update": ("sgd_update", f32)}
+    for name, (kern, plain, lib, moved, flops, dt) in cases.items():
+        ms, plain_ms = turns(kern, plain)
+        library_ms = time_ms(lambda _: lib(), None) if lib else None
+        bound_ms, bound_by = bound(moved, flops, dt)
+        lib_text = f"{library_ms:.4f} ms" if lib else "none"
+        print(f"[fused] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib_text}, bound {bound_ms:.4f} ms ({bound_by})")
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": FUSED_SOURCES[name.split("_")[0]],
+            "replaces": K3_REPLACES if name == "conv_fwd" else K4_REPLACES,
+            "max_abs_err": errs[err_key[name]], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+    # The other uses of the same kernels on the path, and K3's raw conv.
+    extra = {
+        "stem fwd": (lambda: cc.conv_fwd(x, v["conv1.weight"], v["conv1.bias"],
+                                         dtype=bf16, channels_last=True),
+                     lambda: cc.conv_fwd_plain(
+                         x, v["conv1.weight"], v["conv1.bias"], dtype=bf16,
+                         channels_last=True)),
+        "stem wgrad": (lambda: cc.conv_wgrad(x, t["dh1"], t["h1"], t["a1"],
+                                             gwc1, gbc1, dtype=bf16),
+                       lambda: cc.conv_wgrad_plain(x, t["dh1"], t["h1"],
+                                                   t["a1"], gwc1, gbc1,
+                                                   dtype=bf16)),
+        "K3 raw stem": (lambda: cc.client_stem_conv(x3b, w4b),
+                        lambda: cc.client_stem_conv_plain(x3b, w4b)),
+    }
+    for name, (kern, plain) in extra.items():
+        ms, plain_ms = turns(kern, plain)
+        print(f"[fused] {name} bf16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+    k3_lib = time_ms(lambda _: F.conv2d(x3g, w4g, stride=2, padding=1,
+                                        groups=c), None)
+    k3_bound, k3_by = bound(nbytes(x3b, w4b) + 2 * c * 32 * 14 * 14 * 128,
+                            2 * c * 32 * 14 * 14 * 128 * 128, bf16)
+    print(f"[fused] K3 raw stem bf16: library (grouped F.conv2d) "
+          f"{k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}); stem wgrad "
+          f"live outputs {live1}, conv2 {live3}")
+    del engine, timed, t, cases, extra
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fused_path() -> dict:
+    """7b and 7c: the kernel path against the mirror at f32, then at full
+    width in bf16 with its gates; returns the launches of one call."""
+    from multimodal_fl_security_tpu_torch.benchmarks.fused_kernel_bench import (
+        run_bench,
+        run_check,
+    )
+    from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+        LAUNCHES_PER_STEP,
+    )
+
+    check = run_check()
+    print(f"[fused] run_check: {json.dumps(check)}")
+    if not check["max_abs_err_vs_mirror"] <= FUSED_CHECK_ATOL:
+        raise AssertionError(f"fused_local_train differs from the mirror by "
+                             f"{check['max_abs_err_vs_mirror']} > "
+                             f"{FUSED_CHECK_ATOL}")
+    t0 = time.perf_counter()
+    bench = run_bench()
+    print(f"[fused] run_bench in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(bench)}")
+    print(f"[fused] ms per call: kernel path {bench['kernel_ms']:.3f}, "
+          f"mirror {bench['mirror_ms']:.3f}, engine trainer "
+          f"{bench['engine_ms']:.3f}; max drift from the mirror "
+          f"{bench['max_drift_vs_mirror']:.6g}")
+    failures = []
+    if not bench["finite"]:
+        failures.append("non-finite parameters")
+    if bench["steps"] != 38 or bench["launches_total"] != \
+            LAUNCHES_PER_STEP * 38:
+        failures.append(f"launches {bench['launches_total']} != "
+                        f"{LAUNCHES_PER_STEP} x 38")
+    if not bench["bitwise_repeat"]:
+        failures.append("two calls differ")
+    if not bench["fedavg_accuracy"] > FUSED_MIN_ACCURACY:
+        failures.append(f"FedAvg accuracy {bench['fedavg_accuracy']} <= "
+                        f"{FUSED_MIN_ACCURACY}")
+    if failures:
+        raise AssertionError("fused local training: " + "; ".join(failures))
+    return bench["launches"]
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -492,13 +884,22 @@ def main() -> None:
     sort_row = phase_sorted_reduce_kernel()
     north_star = phase_main_path()
     robust = phase_robust_rounds()
+    fused_rows = phase_fused_kernels()
+    fused = phase_fused_path()
     # Each path ran with the counts set to 0 just before it.
     gram_row["launches"] = north_star + robust["gram"]
     sort_row["launches"] = robust["sorted_reduce"]
+    for kernel, row in fused_rows.items():
+        row["launches"] = fused[kernel]
     print(f"[paths] gram launches: {north_star} (Krum north star) + "
           f"{robust['gram']} (R4); sorted_reduce launches: "
-          f"{robust['sorted_reduce']} (R1-R4)")
-    print(json.dumps({"kernels": [gram_row, sort_row]}))
+          f"{robust['sorted_reduce']} (R1-R4); fused local training (one "
+          f"call, 38 steps): {fused}")
+    missing = [k for k, r in fused_rows.items() if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the path: {missing}")
+    print(json.dumps({"kernels": [gram_row, sort_row,
+                                  *fused_rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,10 @@ the robust aggregators run on two CUDA kernels written for ``sm_90a``: the
 centered Gram matrix behind Krum's and Bulyan's distances
 (``csrc/gram.cu``) and the column-wise sorted reduction behind the
 coordinate median, the trimmed mean, the geometric median's start and
-Bulyan's aggregate (``csrc/sorted_reduce.cu``).
+Bulyan's aggregate (``csrc/sorted_reduce.cu``). Every client's local SGD
+also runs on hand-written kernels (``ops/fused_kernel.py::
+fused_local_train``: ``csrc/client_conv.cu``, ``client_dense.cu`` and
+``client_sgd.cu``).
 
 Typical use::
 

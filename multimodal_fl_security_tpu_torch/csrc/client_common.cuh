@@ -1,0 +1,70 @@
+// Shared pieces of the per-client local-training kernels (client_conv.cu,
+// client_dense.cu, client_sgd.cu): a strided tensor view that the Python
+// wrappers fill from torch's own strides, typed loads and stores, and the
+// rounding to the compute type.
+//
+// Every kernel reads its operands as float, rounded to the compute type
+// (bf16 or f32) where the plain PyTorch version casts them, accumulates in
+// f32, and stores through the view's own dtype, which rounds once.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+enum MftDtype : int { kF32 = 0, kBF16 = 1, kU8 = 2, kI64 = 3 };
+
+// A view of up to five axes, in the order (client, sample, channel, row,
+// column); strides in elements, 0 for an axis the tensor does not have.
+struct MftView {
+  void* ptr;
+  long long st[5];
+  int dtype;
+  int pad_;
+};
+
+__device__ __forceinline__ long long mft_off(const MftView& v, long long a,
+                                             long long b, long long c,
+                                             long long d, long long e) {
+  return a * v.st[0] + b * v.st[1] + c * v.st[2] + d * v.st[3] + e * v.st[4];
+}
+
+__device__ __forceinline__ float mft_ld(const MftView& v, long long i) {
+  switch (v.dtype) {
+    case kF32: return static_cast<const float*>(v.ptr)[i];
+    case kBF16:
+      return __bfloat162float(static_cast<const __nv_bfloat16*>(v.ptr)[i]);
+    case kU8: return static_cast<float>(static_cast<const uint8_t*>(v.ptr)[i]);
+    default: return static_cast<float>(static_cast<const int64_t*>(v.ptr)[i]);
+  }
+}
+
+__device__ __forceinline__ void mft_st(const MftView& v, long long i,
+                                       float x) {
+  switch (v.dtype) {
+    case kF32: static_cast<float*>(v.ptr)[i] = x; break;
+    case kBF16:
+      static_cast<__nv_bfloat16*>(v.ptr)[i] = __float2bfloat16(x);
+      break;
+    default: static_cast<uint8_t*>(v.ptr)[i] = static_cast<uint8_t>(x);
+  }
+}
+
+// x rounded to the compute type `dtype` (round to nearest even), as float.
+__device__ __forceinline__ float mft_round(float x, int dtype) {
+  return dtype == kBF16 ? __bfloat162float(__float2bfloat16(x)) : x;
+}
+
+// Opt in to `bytes` of dynamic shared memory when it is over the 48 KB that
+// needs no opt-in; a launch that asks for more without it is refused.
+template <typename Kernel>
+inline cudaError_t mft_smem_optin(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+constexpr size_t kMftMaxSmem = 227 * 1024;

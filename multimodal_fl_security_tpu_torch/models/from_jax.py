@@ -20,6 +20,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from multimodal_fl_security_tpu_torch.models.registry import target_device
+
 #: port segment prefix -> flax module name (default fused stem)
 JAX_MODULES = {
     "conv1": "ConvPoolFused_0",
@@ -56,9 +58,11 @@ def _to_torch(model, name: str, arr: np.ndarray, shape: tuple) -> np.ndarray:
     return arr.swapaxes(-1, -2)
 
 
-def params_from_jax(model, params: Mapping, device="cpu") -> torch.Tensor:
+def params_from_jax(model, params: Mapping, device="cuda") -> torch.Tensor:
     """Flax ``params`` (nested dict of arrays, optionally with a leading
-    client axis on every leaf) as the port's flat f32 buffer ``[..., D]``."""
+    client axis on every leaf) as the port's flat f32 buffer ``[..., D]``
+    on ``device`` (the card unless the caller names another)."""
+    device = target_device(device)
     first = np.asarray(params[JAX_MODULES["conv1"]]["kernel"])
     in_channels = first.shape[-2]
     layout = model.layout(in_channels)
@@ -72,9 +76,10 @@ def params_from_jax(model, params: Mapping, device="cpu") -> torch.Tensor:
 
 
 def flat_from_jax(model, flat: np.ndarray, in_channels: int,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """A JAX flat vector ``[..., D]`` (``flatten_tree``/``flatten_stacked``)
     as the port's flat vector, element for element."""
+    device = target_device(device)
     flat = np.asarray(flat, np.float32)
     layout = model.layout(in_channels)
     if flat.shape[-1] != layout.dim:

@@ -1,0 +1,64 @@
+"""ctypes plumbing shared by the local-training kernels' wrappers.
+
+``csrc/client_common.cuh`` defines ``MftView``: a pointer, five strides in
+elements over the axes (client, sample, channel, row, column) and a dtype
+code. :func:`view` builds one from a tensor and the tensor dimension that
+plays each axis, so a kernel reads a strided slice (a step's batch of a
+client's images, a layer's segment of the flat buffer) in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2,
+               torch.int64: 3}
+
+
+class MftView(ctypes.Structure):
+    _fields_ = [("ptr", ctypes.c_void_p), ("st", ctypes.c_int64 * 5),
+                ("dtype", ctypes.c_int), ("pad_", ctypes.c_int)]
+
+
+def view(t: Optional[torch.Tensor],
+         axes: Sequence[Optional[int]] = ()) -> MftView:
+    """``t`` as an ``MftView``: ``axes[i]`` is the dimension of ``t`` that
+    plays axis ``i`` of (client, sample, channel, row, column), or None.
+    ``None`` gives a null view (an absent optional operand)."""
+    v = MftView()
+    if t is None:
+        return v
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"no kernel takes {t.dtype}")
+    v.ptr = t.data_ptr()
+    v.dtype = DTYPE_CODES[t.dtype]
+    strides = t.stride()
+    for i, dim in enumerate(axes):
+        if dim is not None:
+            v.st[i] = strides[dim]
+    return v
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, err: int, what: str, prefix: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        msg = getattr(lib, f"mft_{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err} "
+                           f"({msg})")
+
+
+def require_cuda(*tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on; raises otherwise."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError("the kernel needs every operand on one CUDA "
+                             f"device, got {t.device} and {device}")
+    return device

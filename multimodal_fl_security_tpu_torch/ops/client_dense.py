@@ -1,0 +1,147 @@
+"""Per-client dense layers of SimpleCNN's local training (fc1 and fc2).
+
+Counterpart of the fc1/fc2 parts of ``multimodal_fl_security_tpu/ops/
+fused_kernel.py::fused_local_train`` (K4; ``fused_train.py:407-416`` and
+their VJPs). :func:`dense_fwd` and :func:`dense_bwd` launch the hand-written
+kernels of ``csrc/client_dense.cu`` for CUDA tensors, or raise, and run
+their ``*_plain`` versions (``torch.bmm`` in f32) for CPU tensors.
+
+Shapes: activations ``[C, rows, K]`` of any strides, weights ``[C, F, K]``
+views of the flat parameter buffer (torch's ``[out, in]`` order, so fc1's
+input axis is the pooled map's (c, h, w) flatten) and biases ``[C, F]``.
+Weights are rounded to ``wdtype`` where the port's ``SimpleCNN.forward``
+casts them; products accumulate in f32; outputs round once to their dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from multimodal_fl_security_tpu_torch.ops import _build
+from multimodal_fl_security_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    MftView,
+    check,
+    require_cuda,
+    stream_of,
+    view,
+)
+
+_MAT_AXES = (0, 1, 2)      # (client, row, column)
+_BIAS_AXES = (0, None, 1)  # (client, -, feature)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("client_dense")
+    p = ctypes.POINTER(MftView)
+    i = ctypes.c_int
+    lib.mft_dense_fwd.argtypes = [p] * 4 + [i] * 7 + [ctypes.c_void_p]
+    lib.mft_dense_fwd.restype = i
+    lib.mft_dense_bwd.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_void_p]
+    lib.mft_dense_bwd.restype = i
+    lib.mft_client_dense_error_string.argtypes = [i]
+    lib.mft_client_dense_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.to(dtype).float()
+
+
+def _check(x, w, b):
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[2] or tuple(b.shape) != tuple(w.shape[:2]):
+        raise ValueError(f"need x [C, rows, K], w [C, F, K] and b [C, F], got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+
+
+def dense_fwd_plain(x, w, b, *, relu=False, wdtype=torch.float32,
+                    out_dtype=torch.float32):
+    """Plain version of :func:`dense_fwd`."""
+    _check(x, w, b)
+    y = torch.baddbmm(_round(b, wdtype).unsqueeze(1), x.float(),
+                      _round(w, wdtype).transpose(1, 2))
+    return (torch.relu(y) if relu else y).to(out_dtype)
+
+
+def dense_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+              relu: bool = False, wdtype: torch.dtype = torch.float32,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``y = x W^T + b`` per client, then relu if asked: [C, rows, F] in
+    ``out_dtype``. ``dense_fwd.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return dense_fwd_plain(x, w, b, relu=relu, wdtype=wdtype,
+                               out_dtype=out_dtype)
+    _check(x, w, b)
+    device = require_cuda(x, w, b)
+    c, rows, k = x.shape
+    f = w.shape[1]
+    y = torch.empty((c, rows, f), dtype=out_dtype, device=device)
+    lib = _library()
+    views = [view(x, _MAT_AXES), view(w, _MAT_AXES), view(b, _BIAS_AXES),
+             view(y, _MAT_AXES)]
+    err = lib.mft_dense_fwd(*[ctypes.byref(v) for v in views], c, rows, k, f,
+                            int(relu), DTYPE_CODES[wdtype], device.index,
+                            stream_of(x))
+    check(lib, err, "dense_fwd", "client_dense")
+    dense_fwd.launches += 1
+    return y
+
+
+dense_fwd.launches = 0
+
+
+def dense_bwd_plain(dz, x, w, gw, gb, *, mask=None, wdtype=torch.float32,
+                    gdtype=torch.float32, dx_dtype=torch.float32):
+    """Plain version of :func:`dense_bwd`."""
+    dzf = dz.float()
+    gw.copy_(_round(torch.bmm(dzf.transpose(1, 2), x.float()), gdtype))
+    gb.copy_(_round(dzf.sum(dim=1), gdtype))
+    dx = torch.bmm(dzf, _round(w, wdtype))
+    if mask is not None:
+        dx = torch.where(mask.float() > 0, _round(dx, dx_dtype),
+                         torch.zeros((), device=dx.device))
+    return dx.to(dx_dtype)
+
+
+def dense_bwd(dz: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+              gw: torch.Tensor, gb: torch.Tensor, *,
+              mask: Optional[torch.Tensor] = None,
+              wdtype: torch.dtype = torch.float32,
+              gdtype: torch.dtype = torch.float32,
+              dx_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Backward of ``z = x W^T + b`` from ``dz`` [C, rows, F]: writes dW
+    (``gw`` [C, F, K]) and db (``gb`` [C, F]), rounded to ``gdtype``, into
+    the f32 gradient buffer's views, and returns dx = dz W [C, rows, K] in
+    ``dx_dtype``, times ``mask > 0`` (the previous layer's relu) when a mask
+    is given. ``dense_bwd.launches`` counts kernel launches."""
+    if dz.device.type == "cpu":
+        return dense_bwd_plain(dz, x, w, gw, gb, mask=mask, wdtype=wdtype,
+                               gdtype=gdtype, dx_dtype=dx_dtype)
+    _check(x, w, gb)
+    if gw.dtype != torch.float32 or gb.dtype != torch.float32:
+        raise TypeError("gradients are written into f32 buffers")
+    device = require_cuda(dz, x, w, gw, gb,
+                          *([mask] if mask is not None else []))
+    c, rows, k = x.shape
+    f = w.shape[1]
+    dx = torch.empty((c, rows, k), dtype=dx_dtype, device=device)
+    lib = _library()
+    views = [view(dz, _MAT_AXES), view(x, _MAT_AXES), view(w, _MAT_AXES),
+             view(mask, _MAT_AXES), view(gw, _MAT_AXES),
+             view(gb, _BIAS_AXES), view(dx, _MAT_AXES)]
+    err = lib.mft_dense_bwd(*[ctypes.byref(v) for v in views], c, rows, k, f,
+                            DTYPE_CODES[wdtype], DTYPE_CODES[gdtype],
+                            device.index, stream_of(dz))
+    check(lib, err, "dense_bwd", "client_dense")
+    dense_bwd.launches += 1
+    return dx
+
+
+dense_bwd.launches = 0

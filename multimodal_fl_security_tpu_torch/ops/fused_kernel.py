@@ -1,0 +1,139 @@
+"""Every client's local SGD for SimpleCNN on hand-written Hopper kernels.
+
+Counterpart of ``multimodal_fl_security_tpu/ops/fused_kernel.py::
+fused_local_train`` (K4, ``:307-533``), which runs all clients' whole local
+training in one Pallas kernel. Here each SGD step is a fixed sequence of
+launches over all C clients at once:
+
+    conv_fwd (stem)   3x3 SAME conv at the 4 pool offsets, max, bias, relu
+    conv_fwd (conv2)  3x3 SAME conv, bias, relu, 2x2 max-pool
+    dense_fwd (fc1)   + bias, relu
+    dense_fwd (fc2)   + bias, in f32
+    client_ce         masked mean CE and dlogits
+    dense_bwd (fc2)   dW2, db2, dh4 through fc1's relu
+    dense_bwd (fc1)   dW1, db1, dh3
+    conv_wgrad        conv2's dW, db through its argmax and relu
+    conv_dgrad        dh1, conv2's input gradient
+    conv_wgrad        the stem's dW (the fold of w4's copies), db
+    client_sq_norm    per-client squared-norm partials
+    client_sgd_update clip, momentum, update, in place
+
+:data:`LAUNCHES_PER_STEP` counts them. The kernels read each layer's
+weights in place from the ``[C, D]`` parameter buffer and write gradients
+straight into the ``[C, D]`` gradient buffer's segments (the port's
+``FlatLayout``): no per-step copies of weights or gradients. The call
+allocates the three ``[C, D]`` buffers (params, momentum, gradient) once;
+each step's activations and argmax maps come from PyTorch's caching
+allocator, which hands the same blocks back every step.
+
+On CUDA tensors every step launches the kernels (or raises); on CPU
+tensors the same sequence runs with each kernel's plain version in its
+place, so the CPU tests exercise this decomposition and its glue.
+
+Semantics are those of the JAX kernel and ``fused_train.py::
+mirror_local_train``: resident batch order, a fresh zero momentum per
+client, masked mean CE, the clip over each client's logical gradient,
+m = g*scale + mu*m, p -= lr*m, no weight decay. Dropout is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multimodal_fl_security_tpu_torch.ops.client_conv import (
+    conv_dgrad,
+    conv_fwd,
+    conv_wgrad,
+)
+from multimodal_fl_security_tpu_torch.ops.client_dense import (
+    dense_bwd,
+    dense_fwd,
+)
+from multimodal_fl_security_tpu_torch.ops.client_sgd import (
+    client_ce,
+    client_sgd_update,
+    client_sq_norm,
+)
+from multimodal_fl_security_tpu_torch.ops.fused_train import (
+    B,
+    NCLS,
+    check_inputs,
+)
+
+#: the kernel wrappers one SGD step launches, with their launches per step
+STEP_KERNELS = {conv_fwd: 2, dense_fwd: 2, client_ce: 1, dense_bwd: 2,
+                conv_wgrad: 2, conv_dgrad: 1, client_sq_norm: 1,
+                client_sgd_update: 1}
+#: kernel launches of one SGD step over all clients (12)
+LAUNCHES_PER_STEP = sum(STEP_KERNELS.values())
+
+
+def step_grads(views, grads, x, labels, mask, dtype) -> torch.Tensor:
+    """Forward, loss and backward of every client on batch ``x``
+    [C, B, cin, 28, 28]: writes each layer's gradient into ``grads`` (views
+    of the [C, D] gradient buffer) from the parameters' ``views``, and
+    returns each client's loss [C]."""
+    f32 = torch.float32
+    c, bsz = x.shape[:2]
+    h1, a1 = conv_fwd(x, views["conv1.weight"], views["conv1.bias"],
+                      dtype=dtype, channels_last=True)
+    h3, a3 = conv_fwd(h1, views["conv2.weight"], views["conv2.bias"],
+                      dtype=dtype)
+    f3 = h3.view(c, bsz, -1)  # (c, h, w) flatten: fc1.weight's input order
+    h4 = dense_fwd(f3, views["fc1.weight"], views["fc1.bias"], relu=True,
+                   wdtype=dtype, out_dtype=dtype)
+    logits = dense_fwd(h4, views["fc2.weight"], views["fc2.bias"],
+                       wdtype=f32, out_dtype=f32)
+    loss, dlogits = client_ce(logits, labels, mask)
+    dz4 = dense_bwd(dlogits, h4, views["fc2.weight"], grads["fc2.weight"],
+                    grads["fc2.bias"], mask=h4, wdtype=f32, gdtype=f32,
+                    dx_dtype=dtype)
+    dh3 = dense_bwd(dz4, f3, views["fc1.weight"], grads["fc1.weight"],
+                    grads["fc1.bias"], wdtype=dtype, gdtype=dtype,
+                    dx_dtype=dtype).view(h3.shape)
+    conv_wgrad(h1, dh3, h3, a3, grads["conv2.weight"], grads["conv2.bias"],
+               dtype=dtype)
+    dh1 = conv_dgrad(dh3, h3, a3, views["conv2.weight"], tuple(h1.shape[3:]),
+                     dtype=dtype, channels_last=True)
+    conv_wgrad(x, dh1, h1, a1, grads["conv1.weight"], grads["conv1.bias"],
+               dtype=dtype)
+    return loss
+
+
+def fused_local_train(params: torch.Tensor, images: torch.Tensor,
+                      labels: torch.Tensor, bmask: torch.Tensor, *,
+                      learning_rate: float, momentum: float = 0.9,
+                      clip_norm: float = 1.0, local_epochs: int = 1,
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      use_dropout: bool = False) -> torch.Tensor:
+    """Every client's local SGD from the global ``params`` [D] (f32, the
+    port's ``FlatLayout`` for SimpleCNN): ``images`` [C, N, cin, 28, 28],
+    ``labels`` and ``bmask`` [C, N] (0 = padded row), N a multiple of 32.
+    Step s reads rows ``(s % steps)*32 .. +32``; ``local_epochs`` passes.
+    Compute runs in ``compute_dtype`` (fc2 in f32); parameters and momentum
+    stay f32. Returns the clients' parameters [C, D]."""
+    from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
+
+    c, _, steps, cin = check_inputs(params, images, labels, bmask,
+                                    use_dropout)
+    layout = SimpleCNN(num_classes=NCLS).layout(cin)
+    if params.shape[0] != layout.dim:
+        raise ValueError(f"params has {params.shape[0]} elements; SimpleCNN "
+                         f"at {cin} channel(s) has {layout.dim}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be f32 or bf16, got "
+                        f"{compute_dtype}")
+    p = params.detach().float().expand(c, -1).contiguous()
+    mom = torch.zeros_like(p)
+    grad = torch.empty_like(p)  # every element is written each step
+    views, grads = layout.views(p), layout.views(grad)
+    labels = labels.long()
+    mask = bmask.float()
+    for s in range(local_epochs * steps):
+        i = (s % steps) * B
+        step_grads(views, grads, images[:, i:i + B], labels[:, i:i + B],
+                   mask[:, i:i + B], compute_dtype)
+        client_sgd_update(p, mom, grad, client_sq_norm(grad),
+                          lr=learning_rate, momentum=momentum,
+                          clip_norm=clip_norm)
+    return p

@@ -1,0 +1,84 @@
+"""The plain whole-loop oracle of per-client local training.
+
+Counterpart of ``multimodal_fl_security_tpu/ops/fused_train.py::
+mirror_local_train`` (``:527-569``): every client's local SGD, in resident
+batch order, built from the port's own ``SimpleCNN.forward``,
+``torch.autograd``, ``cross_entropy`` and ``sgd_step``
+(``rounds/engine.py``). Tests and ``chip_smoke.py`` hold
+:func:`~multimodal_fl_security_tpu_torch.ops.fused_kernel.fused_local_train`
+to it; nothing on that function's path calls it.
+
+The JAX module's s2d packed layout (``[C, N, 60, 128]`` blocks,
+``fused_train.py:39-52``) and its pack/unpack algebra exist for the TPU's
+(8, 128) tiling and are not ported: both functions take logical images.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: local batch size (``fused_train.py``'s B)
+B = 32
+#: classes of the SimpleCNN that local training runs
+NCLS = 10
+
+_DROPOUT = ("dropout inside the fused trainer is not ported yet (JAX: "
+            "multimodal_fl_security_tpu/ops/fused_kernel.py:403-413 draws it "
+            "from the TPU's own random bits)")
+
+
+def check_inputs(params, images, labels, bmask, use_dropout):
+    """Validate the trainers' shared arguments; returns (C, N, steps, cin)."""
+    if use_dropout:
+        raise NotImplementedError(_DROPOUT)
+    if images.dim() != 5 or tuple(images.shape[3:]) != (28, 28):
+        raise ValueError(f"images must be [C, N, cin, 28, 28], got "
+                         f"{tuple(images.shape)}")
+    c, n, cin = images.shape[:3]
+    if tuple(labels.shape) != (c, n) or tuple(bmask.shape) != (c, n):
+        raise ValueError(f"labels and bmask must be [C, N] = {(c, n)}")
+    if n % B:
+        raise ValueError(f"pad N to a multiple of the batch size {B}, got {n}")
+    if params.dim() != 1:
+        raise ValueError("params must be the global [D] buffer")
+    return c, n, n // B, cin
+
+
+def mirror_local_train(params: torch.Tensor, images: torch.Tensor,
+                       labels: torch.Tensor, bmask: torch.Tensor, *,
+                       learning_rate: float, momentum: float = 0.9,
+                       clip_norm: float = 1.0, local_epochs: int = 1,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       use_dropout: bool = False) -> torch.Tensor:
+    """Every client's local SGD from the global ``params`` [D], as the
+    engine trains it but in resident order: step s reads rows
+    ``(s % steps)*32 .. +32`` of each client's ``images`` [C, N, cin, 28,
+    28], ``labels`` and ``bmask`` [C, N]; masked mean CE; clip at global
+    norm ``clip_norm`` per client, momentum, lr; a fresh zero momentum per
+    client; no weight decay, no dropout. Returns the clients' [C, D]."""
+    from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
+    from multimodal_fl_security_tpu_torch.rounds.engine import (
+        TrainSpec,
+        cross_entropy,
+        sgd_step,
+    )
+
+    c, _, steps, _ = check_inputs(params, images, labels, bmask, use_dropout)
+    model = SimpleCNN(num_classes=NCLS, dtype=compute_dtype,
+                      dropout_rates=(0.0, 0.0))
+    spec = TrainSpec(learning_rate=learning_rate, momentum=momentum,
+                     weight_decay=0.0, clip_norm=clip_norm,
+                     local_epochs=local_epochs, batch_size=B)
+    stacked = params.detach().float().expand(c, -1).clone()
+    stacked.requires_grad_(True)
+    trace = torch.zeros_like(stacked)
+    for s in range(local_epochs * steps):
+        i = (s % steps) * B
+        logits = model(stacked, images[:, i:i + B])
+        losses = cross_entropy(logits, labels[:, i:i + B], bmask[:, i:i + B])
+        stacked.grad = None
+        losses.sum().backward()  # disjoint rows: row c is client c's gradient
+        with torch.no_grad():
+            sgd_step(stacked, stacked.grad, trace, spec)
+    stacked.grad = None
+    return stacked.detach()

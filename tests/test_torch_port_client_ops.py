@@ -1,0 +1,495 @@
+"""The local-training ops of the port against the JAX package's quantities.
+
+Each op's plain version (the CPU path of its wrapper) is held, in f32, to
+what it stands for in the JAX package: K3 (``client_stem_conv``, interpret
+mode and its reference), the stem and conv2 forward of the JAX SimpleCNN on
+the s2d path (the values ``fused_train.forward_impl`` computes, shown equal
+by ``tests/test_fused_train.py``), one step's per-layer gradients against
+``fold_grads`` of ``jax.grad`` of ``packed_ce``, the loss against
+``packed_ce``, and the clip / momentum / update against
+``packed_sgd_step``. Tolerances: rtol 1e-4 and atol 1e-5 for values summed
+in another order, 1e-6 for the loss and the optimizer's elementwise step.
+
+The ``cuda`` cases hold each hand-written kernel to its plain version on the
+card, at small ragged shapes and at the main path's shapes, on planted ties,
+and for two calls being bitwise equal; they skip without a card. JAX is
+imported inside the JAX-side helpers, so they run where JAX is missing.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodal_fl_security_tpu_torch.models import create_model
+from multimodal_fl_security_tpu_torch.models.from_jax import params_from_jax
+from multimodal_fl_security_tpu_torch.ops.client_conv import (
+    client_stem_conv,
+    client_stem_conv_plain,
+    conv_dgrad,
+    conv_dgrad_plain,
+    conv_fwd,
+    conv_fwd_plain,
+    conv_wgrad,
+    conv_wgrad_plain,
+    embed_stem,
+)
+from multimodal_fl_security_tpu_torch.ops.client_dense import (
+    dense_bwd,
+    dense_bwd_plain,
+    dense_fwd,
+    dense_fwd_plain,
+)
+from multimodal_fl_security_tpu_torch.ops.client_sgd import (
+    client_ce,
+    client_ce_plain,
+    client_sgd_update,
+    client_sgd_update_plain,
+    client_sq_norm,
+    client_sq_norm_plain,
+)
+from multimodal_fl_security_tpu_torch.ops.fused_kernel import step_grads
+
+C, B, CIN = 2, 32, 8
+
+
+def jax_side():
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_fl_security_tpu.models.simple_cnn import SimpleCNN
+    from multimodal_fl_security_tpu.ops import fused_train as ft
+    from multimodal_fl_security_tpu.ops.s2d import space_to_depth
+
+    return jax, jnp, SimpleCNN, ft, space_to_depth
+
+
+def nchw(x):
+    """NHWC numpy images (any leading axes) as an NCHW torch tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))
+
+
+@pytest.fixture(scope="module")
+def case():
+    jax, jnp, SimpleCNN, ft, space_to_depth = jax_side()
+    # A seed whose pooling windows hold no near tie (see min_window_gap).
+    rng = np.random.RandomState(2)
+    images = rng.normal(size=(C, B, 28, 28, CIN)).astype(np.float32)
+    labels = rng.randint(0, 10, size=(C, B)).astype(np.int32)
+    mask = np.ones((C, B), np.float32)
+    mask[1, -3:] = 0.0  # padded rows
+    jmodel = SimpleCNN(num_classes=10, dtype=jnp.float32)
+    blocks = np.asarray(space_to_depth(images))
+    base = jmodel.init(jax.random.PRNGKey(0),
+                       {"image_s2d": jnp.asarray(blocks[0])})["params"]
+    # Distinct parameters per client.
+    stacked = jax.tree_util.tree_map(
+        lambda p: np.asarray(p)[None]
+        + 0.05 * rng.normal(size=(C,) + p.shape).astype(np.float32), base)
+    model = create_model("simple_cnn", num_classes=10)
+    return dict(images=images, labels=labels, mask=mask, blocks=blocks,
+                jmodel=jmodel, stacked=stacked, model=model,
+                params=params_from_jax(model, stacked, device="cpu"))
+
+
+def client_tree(stacked, c):
+    import jax
+
+    return jax.tree_util.tree_map(lambda a: a[c], stacked)
+
+
+def stack_trees(trees):
+    import jax
+
+    return jax.tree_util.tree_map(lambda *a: np.stack(a), *trees)
+
+
+# ---------------------------------------------------------------- K3
+
+def test_client_stem_conv_matches_k3():
+    jax, jnp, *_ = jax_side()
+    from multimodal_fl_security_tpu.ops.client_conv import (
+        client_stem_conv as jax_stem,
+    )
+    from multimodal_fl_security_tpu.ops.client_conv import (
+        client_stem_conv_reference,
+    )
+
+    rng = np.random.RandomState(1)
+    c, b = 3, 4
+    x = rng.normal(size=(c, b, 28 * 28 * 8)).astype(np.float32)
+    w4 = (0.1 * rng.normal(size=(c, 4, 4, 8, 128))).astype(np.float32)
+    before = conv_fwd.launches
+    got = client_stem_conv(torch.from_numpy(x), torch.from_numpy(w4))
+    assert conv_fwd.launches == before  # the plain version on the CPU
+    assert got.shape == (c, b, 14, 14, 128) and got.is_contiguous()
+    for want in (jax_stem(jnp.asarray(x), jnp.asarray(w4), interpret=True),
+                 client_stem_conv_reference(jnp.asarray(x), jnp.asarray(w4))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_pooled_stem_is_k3_on_the_embedded_kernel(case):
+    """The stem's epilogue form equals K3's raw conv on w4, then the max
+    over w4's four channel groups, the bias and the relu (ConvPoolFused)."""
+    views = case["model"].layout(CIN).views(case["params"])
+    w, b = views["conv1.weight"], views["conv1.bias"]
+    x = nchw(case["images"])
+    pooled, arg = conv_fwd(x, w, b, channels_last=True)
+    raw = client_stem_conv(
+        torch.from_numpy(case["images"]).reshape(C, B, -1), embed_stem(w))
+    want = torch.relu(raw.view(C, B, 14, 14, 4, 32).amax(dim=4)
+                      + b[:, None, None, None, :])
+    np.testing.assert_allclose(pooled.permute(0, 1, 3, 4, 2).numpy(),
+                               want.numpy(), rtol=1e-5, atol=1e-5)
+    assert arg.dtype == torch.uint8 and int(arg.max()) <= 3
+
+
+# ---------------------------------------------------------------- forward
+
+def test_stem_and_conv2_forward_match_jax(case):
+    jax, jnp, *_ = jax_side()
+    jmodel = case["jmodel"]
+    h1_want, h3_want = [], []
+    for c in range(C):
+        _, state = jmodel.apply(
+            {"params": client_tree(case["stacked"], c)},
+            {"image_s2d": jnp.asarray(case["blocks"][c])},
+            capture_intermediates=True, mutable=["intermediates"])
+        inter = state["intermediates"]
+        h1_want.append(np.asarray(inter["ConvPoolFused_0"]["__call__"][0]))
+        z2 = np.maximum(np.asarray(inter["Conv_0"]["__call__"][0]), 0.0)
+        h3_want.append(z2.reshape(B, 7, 2, 7, 2, 64).max(axis=(2, 4)))
+    views = case["model"].layout(CIN).views(case["params"])
+    h1, _ = conv_fwd(nchw(case["images"]), views["conv1.weight"],
+                     views["conv1.bias"], channels_last=True)
+    h3, _ = conv_fwd(h1, views["conv2.weight"], views["conv2.bias"])
+    assert h1.shape == (C, B, 32, 14, 14) and h3.shape == (C, B, 64, 7, 7)
+    assert h3.is_contiguous()  # fc1 reads its (c, h, w) flatten in place
+    np.testing.assert_allclose(h1.permute(0, 1, 3, 4, 2).numpy(),
+                               np.stack(h1_want), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(h3.permute(0, 1, 3, 4, 2).numpy(),
+                               np.stack(h3_want), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- gradients
+
+def jax_step(case, c):
+    """(loss, folded logical gradients) of client c's packed loss."""
+    jax, jnp, _, ft, _ = jax_side()
+    p = client_tree(case["stacked"], c)
+    xblk = ft.pack_blocks(jnp.asarray(case["blocks"][c]))
+    onehot = jax.nn.one_hot(case["labels"][c], 128)
+    bmask = jnp.asarray(case["mask"][c])
+
+    def loss(pk):
+        return ft.packed_ce(ft.mirror_forward(pk, xblk), onehot, bmask)
+
+    pk = ft.pack_params(p)
+    value, g = jax.value_and_grad(loss)(pk)
+    return float(value), ft.fold_grads(g, p), g
+
+
+def min_window_gap(case) -> float:
+    """The least gap between the two largest conv outputs of a pooling
+    window whose max passes the relu, over both layers and clients. The two
+    packages sum the convolutions in other orders (~1e-6 apart here), so a
+    smaller gap could route a window's gradient to another position."""
+    import torch.nn.functional as F
+
+    views = case["model"].layout(CIN).views(case["params"])
+    x = nchw(case["images"])
+    h1, _ = conv_fwd(x, views["conv1.weight"], views["conv1.bias"])
+    gaps = []
+    for inp, layer in ((x, "conv1"), (h1, "conv2")):
+        for c in range(C):
+            z = F.conv2d(inp[c], views[layer + ".weight"][c], padding=1)
+            b, co, h, w = z.shape
+            win = z.view(b, co, h // 2, 2, w // 2, 2).permute(
+                0, 1, 2, 4, 3, 5).reshape(b, co, h // 2, w // 2, 4)
+            top = win.topk(2, dim=-1).values
+            live = top[..., 0] + views[layer + ".bias"][c][:, None, None] > 0
+            gaps.append(float((top[..., 0] - top[..., 1])[live].min()))
+    return min(gaps)
+
+
+def test_step_grads_match_folded_jax_grads(case):
+    assert min_window_gap(case) > 2e-6  # the comparison's premise
+    model = case["model"]
+    layout = model.layout(CIN)
+    steps = [jax_step(case, c) for c in range(C)]
+    want = params_from_jax(model, stack_trees([s[1] for s in steps]),
+                           device="cpu")
+    grad = torch.full_like(case["params"], float("nan"))
+    loss = step_grads(layout.views(case["params"]), layout.views(grad),
+                      nchw(case["images"]),
+                      torch.from_numpy(case["labels"]).long(),
+                      torch.from_numpy(case["mask"]), torch.float32)
+    np.testing.assert_allclose(loss.numpy(), [s[0] for s in steps],
+                               rtol=1e-6, atol=1e-6)
+    assert bool(torch.isfinite(grad).all())  # every element written
+    got_v, want_v = layout.views(grad), layout.views(want)
+    for name in got_v:
+        np.testing.assert_allclose(got_v[name].numpy(), want_v[name].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("clip_norm", [0.01, 100.0, 0.0])
+def test_sgd_update_matches_packed_sgd_step(case, clip_norm):
+    jax, jnp, _, ft, _ = jax_side()
+    model = case["model"]
+    rng = np.random.RandomState(2)
+    new_p, new_m, grads, moms = [], [], [], []
+    for c in range(C):
+        p = client_tree(case["stacked"], c)
+        _, g_logical, g_packed = jax_step(case, c)
+        mom = jax.tree_util.tree_map(
+            lambda a: 0.01 * rng.normal(size=a.shape).astype(np.float32), p)
+        pk, m = ft.packed_sgd_step(ft.pack_params(p), g_packed, mom, p,
+                                   lr=0.05, momentum=0.9,
+                                   clip_norm=clip_norm)
+        new_p.append(ft.unpack_params(pk, p))
+        new_m.append(m)
+        grads.append(g_logical)
+        moms.append(mom)
+    params = case["params"].clone()
+    mom = params_from_jax(model, stack_trees(moms), device="cpu")
+    grad = params_from_jax(model, stack_trees(grads), device="cpu")
+    client_sgd_update(params, mom, grad, client_sq_norm(grad), lr=0.05,
+                      momentum=0.9, clip_norm=clip_norm)
+    np.testing.assert_allclose(
+        params.numpy(),
+        params_from_jax(model, stack_trees(new_p), device="cpu").numpy(),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        mom.numpy(),
+        params_from_jax(model, stack_trees(new_m), device="cpu").numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_client_ce_matches_packed_ce():
+    jax, jnp, _, ft, _ = jax_side()
+    rng = np.random.RandomState(3)
+    logits = rng.normal(size=(3, B, 10)).astype(np.float32)
+    labels = rng.randint(0, 10, size=(3, B))
+    mask = np.ones((3, B), np.float32)
+    mask[1, 5:] = 0.0
+    mask[2] = 0.0  # a client with no real row: loss and gradient 0
+    loss, dlogits = client_ce(torch.from_numpy(logits),
+                              torch.from_numpy(labels),
+                              torch.from_numpy(mask))
+    for c in range(3):
+        junk = rng.normal(size=(B, 118)).astype(np.float32)  # lanes >= 10
+
+        def f(lg, c=c):
+            full = jnp.concatenate([lg, jnp.asarray(junk)], axis=1)
+            return ft.packed_ce(full, jax.nn.one_hot(labels[c], 128),
+                                jnp.asarray(mask[c]))
+
+        value, grad = jax.value_and_grad(f)(jnp.asarray(logits[c]))
+        assert float(loss[c]) == pytest.approx(float(value), abs=1e-6)
+        np.testing.assert_allclose(dlogits[c].numpy(), np.asarray(grad),
+                                   rtol=1e-6, atol=1e-7)
+    assert float(loss[2]) == 0.0 and not bool(dlogits[2].any())
+
+
+# ---------------------------------------------------------------- CUDA
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator("cuda").manual_seed(0)
+
+
+def close(got, want, dtype, scale=1.0):
+    """f32: the same sums in another order; bf16: one rounding apart."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+def conv_case(gen, layer, c, b, cin=1):
+    """x, w, b of the stem ([C, B, cin, 28, 28]) or conv2 ([C, B, 32, 14,
+    14], NHWC like the stem's output)."""
+    if layer == "stem":
+        x = torch.randn((c, b, cin, 28, 28), generator=gen, device="cuda")
+        cout = 32
+    else:
+        cin, cout = 32, 64
+        x = torch.relu(torch.randn((c, b, 14, 14, 32), generator=gen,
+                                   device="cuda")).permute(0, 1, 4, 2, 3)
+    w = 0.3 * torch.randn((c, cout, cin, 3, 3), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((c, cout), generator=gen, device="cuda")
+    return x, w, bias
+
+
+SHAPES = [("stem", 3, 5, 1), ("stem", 3, 5, 8), ("conv2", 3, 5, 32),
+          ("stem", 100, 32, 1), ("conv2", 100, 32, 32)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer,c,b,cin", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_fwd_kernel_matches_plain(cuda, layer, c, b, cin, dtype):
+    x, w, bias = conv_case(cuda, layer, c, b, cin)
+    before = conv_fwd.launches
+    out, arg = conv_fwd(x.to(dtype) if layer == "conv2" else x, w, bias,
+                        dtype=dtype, channels_last=layer == "stem")
+    again, arg2 = conv_fwd(x.to(dtype) if layer == "conv2" else x, w, bias,
+                           dtype=dtype, channels_last=layer == "stem")
+    assert conv_fwd.launches == before + 2
+    want, warg = conv_fwd_plain(x.to(dtype) if layer == "conv2" else x, w,
+                                bias, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(arg, arg2)
+    close(out, want, dtype)
+    # Argmax differs only where two window positions (nearly) tie.
+    assert float((arg == warg).float().mean()) > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", ["stem", "conv2"])
+def test_conv_fwd_kernel_planted_ties(cuda, layer):
+    """Integer operands make every sum exact: interior windows tie in all
+    four positions, and both versions take the first, (0, 0)."""
+    x, w, bias = conv_case(cuda, layer, 3, 4, 1)
+    x = torch.ones_like(x)
+    w = torch.randint(-2, 3, w.shape, generator=cuda, device="cuda").float()
+    bias = torch.zeros_like(bias).add_(100.0)  # keep the relu open
+    out, arg = conv_fwd(x, w, bias)
+    want, warg = conv_fwd_plain(x, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(arg, warg)
+    assert not bool(arg[..., 1:-1, 1:-1].any())
+
+
+def pooled_case(gen, layer, c, b, cin, dtype):
+    x, w, bias = conv_case(gen, layer, c, b, cin)
+    x = x.to(dtype) if layer == "conv2" else x
+    h, arg = conv_fwd_plain(x, w, bias, dtype=dtype)
+    dp = (0.1 * torch.randn(h.shape, generator=gen, device="cuda")).to(dtype)
+    return x, w, bias, h, arg, dp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer,c,b,cin", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_wgrad_kernel_matches_plain(cuda, layer, c, b, cin, dtype):
+    x, w, bias, h, arg, dp = pooled_case(cuda, layer, c, b, cin, dtype)
+    grads = [torch.full_like(w, float("nan")), torch.full_like(bias, 0.5)]
+    again = [torch.empty_like(w), torch.empty_like(bias)]
+    want = [torch.empty_like(w), torch.empty_like(bias)]
+    before = conv_wgrad.launches
+    conv_wgrad(x, dp, h, arg, *grads, dtype=dtype)
+    conv_wgrad(x, dp, h, arg, *again, dtype=dtype)
+    assert conv_wgrad.launches == before + 2
+    conv_wgrad_plain(x, dp, h, arg, *want, dtype=dtype)
+    torch.cuda.synchronize()
+    for got, rep, ref in zip(grads, again, want):
+        assert torch.equal(got, rep)  # fixed-order sums
+        close(got, ref, dtype, scale=float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b", [(3, 5), (100, 32)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_dgrad_kernel_matches_plain(cuda, c, b, dtype):
+    _, w, _, h, arg, dp = pooled_case(cuda, "conv2", c, b, 32, dtype)
+    before = conv_dgrad.launches
+    got = conv_dgrad(dp, h, arg, w, (14, 14), dtype=dtype,
+                     channels_last=True)
+    again = conv_dgrad(dp, h, arg, w, (14, 14), dtype=dtype,
+                       channels_last=True)
+    assert conv_dgrad.launches == before + 2
+    want = conv_dgrad_plain(dp, h, arg, w, (14, 14), dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    close(got, want, dtype, scale=float(want.float().abs().max()))
+
+
+DENSE = [(3, 7, 100, 37), (100, 32, 3136, 128), (100, 32, 128, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows,k,f", DENSE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_kernels_match_plain(cuda, c, rows, k, f, dtype):
+    x = torch.relu(torch.randn((c, rows, k), generator=cuda,
+                               device="cuda")).to(dtype)
+    w = torch.randn((c, f, k), generator=cuda, device="cuda") / k ** 0.5
+    b = torch.randn((c, f), generator=cuda, device="cuda")
+    y = dense_fwd(x, w, b, relu=True, wdtype=dtype, out_dtype=dtype)
+    close(y, dense_fwd_plain(x, w, b, relu=True, wdtype=dtype,
+                             out_dtype=dtype), dtype, scale=4.0)
+    dz = torch.randn((c, rows, f), generator=cuda, device="cuda").to(dtype)
+    outs = []
+    for fn in (dense_bwd, dense_bwd, dense_bwd_plain):
+        gw, gb = torch.empty_like(w), torch.empty_like(b)
+        dx = fn(dz, x, w, gw, gb, mask=x, wdtype=dtype, gdtype=dtype,
+                dx_dtype=dtype)
+        outs.append((gw, gb, dx))
+    torch.cuda.synchronize()
+    for got, rep, ref in zip(*outs):
+        assert torch.equal(got, rep)
+        close(got, ref, dtype, scale=float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows", [(3, 7), (100, 32)])
+def test_client_ce_kernel_matches_plain(cuda, c, rows):
+    logits = 3 * torch.randn((c, rows, 10), generator=cuda, device="cuda")
+    labels = torch.randint(0, 10, (c, rows), generator=cuda, device="cuda")
+    mask = (torch.rand((c, rows), generator=cuda, device="cuda")
+            > 0.2).float()
+    mask[0] = 0.0
+    loss, dl = client_ce(logits, labels, mask)
+    loss2, dl2 = client_ce(logits, labels, mask)
+    want_loss, want_dl = client_ce_plain(logits, labels, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(dl, dl2)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dl, want_dl, rtol=1e-6, atol=1e-7)
+    assert float(loss[0]) == 0.0 and not bool(dl[0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(7, 1000), (3, 1), (100, 421_642)])
+@pytest.mark.parametrize("clip_norm", [1.0, 0.0])
+def test_sgd_kernels_match_plain(cuda, c, d, clip_norm):
+    p = torch.randn((c, d), generator=cuda, device="cuda")
+    m = 0.1 * torch.randn((c, d), generator=cuda, device="cuda")
+    g = 0.01 * torch.randn((c, d), generator=cuda, device="cuda")
+    partial = client_sq_norm(g)
+    torch.testing.assert_close(partial.sum(1, keepdim=True),
+                               client_sq_norm_plain(g), rtol=1e-5, atol=0)
+    assert torch.equal(partial, client_sq_norm(g))
+    p_ref, m_ref = p.clone(), m.clone()
+    client_sgd_update(p, m, g, partial, lr=0.05, momentum=0.9,
+                      clip_norm=clip_norm)
+    client_sgd_update_plain(p_ref, m_ref, g, partial, lr=0.05, momentum=0.9,
+                            clip_norm=clip_norm)
+    torch.cuda.synchronize()
+    # Same formula, each operation rounded alone; the two sum the partials
+    # in other orders, so the clip scale may differ in its last bit: up to
+    # |g| * 2^-23 apart where g*s and mu*m cancel.
+    torch.testing.assert_close(m, m_ref, rtol=1e-6, atol=1e-8)
+    torch.testing.assert_close(p, p_ref, rtol=2e-7, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b", [(3, 4), (100, 32)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_client_stem_conv_kernel_matches_plain(cuda, c, b, dtype):
+    x = torch.randn((c, b, 28 * 28 * 8), generator=cuda,
+                    device="cuda").to(dtype)
+    w4 = (0.1 * torch.randn((c, 4, 4, 8, 128), generator=cuda,
+                            device="cuda")).to(dtype)
+    got = client_stem_conv(x, w4)
+    want = client_stem_conv_plain(x, w4)
+    torch.cuda.synchronize()
+    assert got.shape == (c, b, 14, 14, 128) and got.dtype == dtype
+    assert torch.equal(got, client_stem_conv(x, w4))
+    close(got, want, dtype, scale=float(want.float().abs().max()))

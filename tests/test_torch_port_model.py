@@ -67,7 +67,7 @@ def jax_client_loss(jmodel):
 def test_param_count_matches_jax(case):
     d_jax = int(flatten_tree(case["base"]).shape[0])
     assert case["model"].layout(1).dim == d_jax == 421_642
-    flat = init_model(case["model"], in_channels=1, seed=0)
+    flat = init_model(case["model"], in_channels=1, seed=0, device="cpu")
     assert flat.shape == (d_jax,) and flat.dtype == torch.float32
     views = case["model"].layout(1).views(flat)
     for name, v in views.items():
@@ -81,12 +81,15 @@ def test_param_count_matches_jax(case):
 
 def test_flat_from_jax_is_the_port_buffer(case):
     model, stacked = case["model"], case["stacked"]
-    from_tree = params_from_jax(model, stacked)
-    from_flat = flat_from_jax(model, np.asarray(flatten_stacked(stacked)), 1)
+    from_tree = params_from_jax(model, stacked, device="cpu")
+    from_flat = flat_from_jax(model, np.asarray(flatten_stacked(stacked)), 1,
+                              device="cpu")
     assert from_tree.shape == (C, 421_642)
     assert torch.equal(from_tree, from_flat)
-    single = flat_from_jax(model, np.asarray(flatten_tree(case["base"])), 1)
-    assert torch.equal(single, params_from_jax(model, case["base"]))
+    single = flat_from_jax(model, np.asarray(flatten_tree(case["base"])), 1,
+                           device="cpu")
+    assert torch.equal(single, params_from_jax(model, case["base"],
+                                                 device="cpu"))
 
 
 def test_logits_match_jax(case):
@@ -94,7 +97,7 @@ def test_logits_match_jax(case):
     jlogits = jax.vmap(
         lambda p, x: jmodel.apply({"params": p}, {"image": x}, train=False)
     )(case["stacked"], jnp.asarray(case["images"]))
-    params = params_from_jax(model, case["stacked"])
+    params = params_from_jax(model, case["stacked"], device="cpu")
     with torch.no_grad():
         logits = model(params, nchw(case["images"]))
     assert logits.shape == (C, B, 10) and logits.dtype == torch.float32
@@ -112,9 +115,11 @@ def test_per_layer_grads_match_jax(case):
     jgrads = jax.vmap(jax.grad(jax_client_loss(jmodel)))(
         case["stacked"], jnp.asarray(case["images"]),
         jnp.asarray(case["labels"]), jnp.asarray(case["mask"]))
-    expected = flat_from_jax(model, np.asarray(flatten_stacked(jgrads)), 1)
+    expected = flat_from_jax(model, np.asarray(flatten_stacked(jgrads)), 1,
+                             device="cpu")
 
-    params = params_from_jax(model, case["stacked"]).requires_grad_(True)
+    params = params_from_jax(model, case["stacked"],
+                             device="cpu").requires_grad_(True)
     logits = model(params, nchw(case["images"]))
     losses = cross_entropy(logits, torch.from_numpy(case["labels"]),
                            torch.from_numpy(case["mask"]))
@@ -149,7 +154,8 @@ def test_evaluate_model_matches_jax(case):
         Dataset(arrays={"image": images, "label": labels}, num_classes=10),
         batch_size=16)
     got = evaluate_model(
-        case["model"], params_from_jax(case["model"], case["base"]),
+        case["model"],
+        params_from_jax(case["model"], case["base"], device="cpu"),
         {"image": nchw(images), "label": torch.from_numpy(labels)},
         batch_size=16)
     assert got["num_samples"] == want["num_samples"] == C * B
@@ -157,9 +163,23 @@ def test_evaluate_model_matches_jax(case):
     assert got["loss"] == pytest.approx(want["loss"], abs=1e-5)
 
 
+def test_entry_points_default_to_the_card(monkeypatch, case):
+    # With no card visible, a call that takes the default device raises
+    # instead of carrying on on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = case["model"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(model, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(model, case["base"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flat_from_jax(model, np.asarray(flatten_tree(case["base"])), 1)
+    assert init_model(model, 1, device="cpu").device.type == "cpu"
+
+
 def test_dropout_draws_from_the_generator():
     model = create_model("simple_cnn", num_classes=10)
-    params = init_model(model, in_channels=1, seed=0)
+    params = init_model(model, in_channels=1, seed=0, device="cpu")
     x = torch.randn(4, 1, HW, HW, generator=torch.Generator().manual_seed(1))
     runs = [model(params, x, train=True,
                   generator=torch.Generator().manual_seed(s))

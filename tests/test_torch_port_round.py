@@ -96,7 +96,7 @@ def rounds():
         TrainSpec(learning_rate=LR, local_epochs=EPOCHS, batch_size=N),
         defense=RecordingKrum(config),
     )
-    params = params_from_jax(model, jparams)
+    params = params_from_jax(model, jparams, device="cpu")
     new, metrics = engine.run_round(params, torch.Generator().manual_seed(0))
     return dict(model=model, params=params, jnew=jnew, new=new,
                 jmetrics={k: np.asarray(v) for k, v in jmetrics.items()},
@@ -104,7 +104,8 @@ def rounds():
 
 
 def test_client_params_match_jax(rounds):
-    want = flat_from_jax(rounds["model"], rounds["jmetrics"]["updates"], 1)
+    want = flat_from_jax(rounds["model"], rounds["jmetrics"]["updates"], 1,
+                         device="cpu")
     got = torch.from_numpy(rounds["metrics"]["updates"])
     assert got.shape == (C, 421_642)
     moved = (got - rounds["params"]).abs().amax(dim=1)
@@ -118,7 +119,7 @@ def test_krum_pick_and_global_match_jax(rounds):
     np.testing.assert_array_equal(m["selected_mask"], jm["selected_mask"])
     np.testing.assert_allclose(m["krum_scores"], jm["krum_scores"],
                                rtol=1e-5)
-    want = params_from_jax(rounds["model"], rounds["jnew"])
+    want = params_from_jax(rounds["model"], rounds["jnew"], device="cpu")
     np.testing.assert_allclose(rounds["new"].numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
 

@@ -118,7 +118,7 @@ def rounds(request):
         defense=recording(get_defense(defense, defense_config)),
         malicious_clients=MALICIOUS,
     )
-    params = params_from_jax(model, jparams)
+    params = params_from_jax(model, jparams, device="cpu")
     new, metrics = engine.run_round(params, torch.Generator().manual_seed(0))
     return dict(name=request.param, model=model, params=params, jnew=jnew,
                 new=new,
@@ -127,7 +127,8 @@ def rounds(request):
 
 
 def test_poisoned_updates_match_jax(rounds):
-    want = flat_from_jax(rounds["model"], rounds["jmetrics"]["updates"], 1)
+    want = flat_from_jax(rounds["model"], rounds["jmetrics"]["updates"], 1,
+                         device="cpu")
     got = torch.from_numpy(rounds["metrics"]["updates"])
     assert got.shape == (C, 421_642)
     # The colluders all sent the one crafted row; the benign clients trained.
@@ -143,7 +144,7 @@ def test_robust_aggregate_matches_jax(rounds):
     if "selected_mask" in jm:
         np.testing.assert_array_equal(m["selected_mask"], jm["selected_mask"])
         assert int(m["num_selected"]) == int(jm["num_selected"]) == C - 2
-    want = params_from_jax(rounds["model"], rounds["jnew"])
+    want = params_from_jax(rounds["model"], rounds["jnew"], device="cpu")
     np.testing.assert_allclose(rounds["new"].numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
     assert abs(float(m["client_loss_mean"])
