@@ -47,6 +47,24 @@ paths and fails loudly on anything wrong. Phases, in order:
    width in bf16: finite parameters, 12 launches per step x 38 steps, two
    calls bitwise equal, FedAvg test accuracy > 0.5; prints the kernel
    path's, the mirror's and the engine trainer's ms per call.
+8. The Mosaic probe set (K5): ``benchmarks/mosaic_probe.run_probes()``,
+   every probe's kernel path against its plain version (layout, generator
+   and carried sums bitwise, the rest within the JAX probe's tolerance);
+   then each probe's kernel and plain times in turns (CUDA events), and per
+   kernel the one PyTorch call that computes the same function, where
+   there is one.
+9. The autodiff probe set (K6): ``benchmarks/ad_in_kernel_probe.
+   run_probes()``, every probe's gradient through the hand-written backward
+   kernels against ``torch.autograd`` of the plain body, at the JAX probe's
+   tolerance; times of both, and of the backward-only kernels.
+10. K4's dropout: the dropout kernel against its plain version (bitwise,
+   [100, 32, 3136] and [100, 32, 128], f32 and bf16);
+   ``run_check(use_dropout=True)`` (C=4, f32, against the mirror fed the
+   plain generator's masks, within 1e-4); ``run_bench(use_dropout=True)``
+   at full width in bf16: 16 launches per step x 38 steps, a bitwise
+   repeat with the same seed, another result with another seed, finite
+   parameters, FedAvg test accuracy > 0.3, the drift from the mirror fed
+   the same masks, and ms per call beside the call without dropout.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -102,6 +120,28 @@ K4_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:307"
 FUSED_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FUSED_CHECK_ATOL = 1e-4
 FUSED_MIN_ACCURACY = 0.5
+DROPOUT_MIN_ACCURACY = 0.3
+CSRC = "multimodal_fl_security_tpu_torch/csrc"
+MOSAIC = "benchmarks/mosaic_probe.py"
+AD_PROBE = "benchmarks/ad_in_kernel_probe.py"
+#: each probe kernel's wrapper name: (source, the TPU kernel it replaces,
+#: the probe whose shapes time it)
+PROBE_KERNELS = {
+    "gather": ("probe_layout.cu", f"{MOSAIC}:53", "major_transpose"),
+    "contract": ("probe_contract.cu", f"{MOSAIC}:53", "dgrad_rhs_T_big"),
+    "masked_ce": ("probe_reduce.cu", f"{MOSAIC}:53", "softmax_masked"),
+    "max2": ("probe_reduce.cu", f"{MOSAIC}:53", "sublane_pool_reshape"),
+    "block_fold": ("probe_reduce.cu", f"{MOSAIC}:53", "selector_matmul_fold"),
+    "carry_sum": ("probe_reduce.cu", f"{MOSAIC}:310", "grid_scratch_persist"),
+    "scalar_accum": ("probe_reduce.cu", f"{MOSAIC}:528", "scalar_accum_smem"),
+    "philox_draw_twice": ("probe_prng.cu", f"{MOSAIC}:283", "prng_replay"),
+    "max2_bwd": ("probe_reduce.cu", f"{AD_PROBE}:60", "ad_mask_relu_max"),
+    "relu_mask": ("probe_reduce.cu", f"{AD_PROBE}:60", "ad_mask_relu_max"),
+    "relu_mask_bwd": ("probe_reduce.cu", f"{AD_PROBE}:60",
+                      "ad_mask_relu_max"),
+}
+DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
+DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
 
 
 def phase_device() -> str:
@@ -126,8 +166,13 @@ def phase_build() -> None:
         _build,
         client_conv,
         client_dense,
+        client_dropout,
         client_sgd,
         gram,
+        philox,
+        probe_contract,
+        probe_layout,
+        probe_reduce,
         sorted_reduce,
     )
 
@@ -139,7 +184,10 @@ def phase_build() -> None:
     # One nvcc per source, all started together.
     modules = {"gram": gram, "sorted_reduce": sorted_reduce,
                "client_conv": client_conv, "client_dense": client_dense,
-               "client_sgd": client_sgd}
+               "client_sgd": client_sgd, "client_dropout": client_dropout,
+               "probe_layout": probe_layout,
+               "probe_contract": probe_contract,
+               "probe_reduce": probe_reduce, "probe_prng": philox}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(modules)) as pool:
         builds = list(pool.map(build, modules))
@@ -877,6 +925,255 @@ def phase_fused_path() -> dict:
     return bench["launches"]
 
 
+def probe_wrappers() -> dict:
+    """Every probe kernel's wrapper (K5, K6), by name."""
+    from multimodal_fl_security_tpu_torch.ops import (
+        philox,
+        probe_contract,
+        probe_layout,
+        probe_reduce,
+    )
+
+    return {w.__name__: w for w in (probe_layout.gather,
+                                    probe_contract.contract,
+                                    philox.philox_draw_twice,
+                                    *probe_reduce.WRAPPERS)}
+
+
+def run_counted(run, what: str) -> dict:
+    """A probe set's ``run_probes`` on the card with every probe kernel's
+    count set to 0 just before; raises if a probe failed, else returns the
+    launches by wrapper (and the results, under "results")."""
+    wrappers = probe_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    results = run("cuda")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    failed = [r for r in results if r["status"] != "PASS"]
+    for r in failed:
+        print(f"[{what}] FAIL {r['probe']}: {r['detail']}")
+    if failed:
+        raise AssertionError(f"{what}: {len(failed)} of {len(results)} "
+                             f"probes failed")
+    print(f"[{what}] {len(results)} of {len(results)} probes passed; "
+          f"launches {launches}")
+    return {"launches": launches, "results": results}
+
+
+def probe_row(name: str, ms: float, plain_ms: float, library_ms, moved: int,
+              ops: float, err: float) -> dict:
+    source, replaces, probe = PROBE_KERNELS[name]
+    bound_ms, bound_by = bound(moved, ops)
+    lib_text = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+    print(f"[kernels] {name} at {probe}'s shapes: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib_text}, bound {bound_ms:.6f} ms "
+          f"({bound_by}), max|kernel-plain| {err:.3g}")
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_probes() -> tuple:
+    """8: the K5 probes; returns (rows of the kernels line without
+    launches, launches by wrapper)."""
+    import torch.nn.functional as F
+
+    from multimodal_fl_security_tpu_torch.benchmarks import mosaic_probe as mp
+
+    run = run_counted(mp.run_probes, "K5")
+    errs = {r["probe"]: r["max_abs_err"] for r in run["results"]}
+    gen = torch.Generator("cuda").manual_seed(5)
+    inputs, times = {}, {}
+    for probe in mp.PROBES:
+        args = inputs[probe.name] = probe.make(gen, torch.device("cuda"))
+        times[probe.name] = turns(lambda: probe.kernel(*args),
+                                  lambda: probe.plain(*args))
+        print(f"[K5] {probe.name} ({probe.family}): kernel "
+              f"{times[probe.name][0]:.4f} ms, plain {times[probe.name][1]:.4f}"
+              f" ms, max|kernel-plain| {errs[probe.name]:.3g}")
+    for family in ("layout", "contract", "reduce", "prng"):
+        names = [p.name for p in mp.PROBES if p.family == family]
+        print(f"[K5] family {family}: kernel {sum(times[n][0] for n in names):.4f}"
+              f" ms over {len(names)} probes, plain "
+              f"{sum(times[n][1] for n in names):.4f} ms")
+
+    (x,) = inputs["major_transpose"]
+    g, w = inputs["dgrad_rhs_T_big"]
+    xs, lab = inputs["softmax_masked"]
+    (xp,) = inputs["sublane_pool_reshape"]
+    (d,) = inputs["selector_matmul_fold"]
+    (dg,) = inputs["grid_scratch_persist"]
+    (ds,) = inputs["scalar_accum_smem"]
+    f4 = 4
+    lab_long = lab.long().squeeze(1)  # the library call's label type
+    # (library call or None, bytes moved, operations) at each kernel's probe
+    cases = {
+        "gather": (lambda: x.permute(1, 0, 2).contiguous(), 2 * nbytes(x), 0),
+        "contract": (lambda: torch.matmul(g, w.T),
+                     nbytes(g, w) + f4 * g.shape[0] * w.shape[0],
+                     2 * g.shape[0] * w.shape[0] * g.shape[1]),
+        # The -1e30 lanes add exactly 0 to the masked sum: the NLL over the
+        # 10 valid lanes is the same function.
+        "masked_ce": (lambda: F.cross_entropy(xs[:, :10], lab_long,
+                                              reduction="none"),
+                      nbytes(xs, lab) + f4 * xs.shape[0], 5 * xs.numel()),
+        "max2": (lambda: xp.view(32, 7, 2, 4, 256).amax(dim=2),
+                 nbytes(xp) * 3 // 2, xp.numel() // 2),
+        "block_fold": (lambda: torch.einsum("bibj->ij", d.view(4, 32, 4, 64)),
+                       f4 * 5 * 32 * 64, 3 * 32 * 64),
+        "carry_sum": (lambda: dg.sum(dim=1), nbytes(dg) * 6 // 5, dg.numel()),
+        "scalar_accum": (lambda: ds.sum(), nbytes(ds) + f4, ds.numel()),
+        # Integer work, counted at the f32 rate: ~100 operations per Philox
+        # call, two draws of 2,048 calls; out: two int64 draws and an f32.
+        "philox_draw_twice": (None, 32 * 256 * (8 + 8 + 4),
+                              2 * 2048 * 100),
+    }
+    rows = {}
+    for name, (lib, moved, ops) in cases.items():
+        probe = PROBE_KERNELS[name][2]
+        library_ms = time_ms(lambda _: lib(), None) if lib else None
+        rows[name] = probe_row(name, *times[probe], library_ms, moved, ops,
+                               errs[probe])
+    return rows, run["launches"]
+
+
+def phase_ad_probes() -> tuple:
+    """9: the K6 probes; returns (rows of the backward-only kernels without
+    launches, launches by wrapper)."""
+    from multimodal_fl_security_tpu_torch.benchmarks import (
+        ad_in_kernel_probe as ad,
+    )
+    from multimodal_fl_security_tpu_torch.ops import probe_reduce as pr
+    from multimodal_fl_security_tpu_torch.ops.probe_autograd import PLAIN_OPS
+
+    run = run_counted(ad.run_probes, "K6")
+    errs = {r["probe"]: r["max_abs_err"] for r in run["results"]}
+    gen = torch.Generator("cuda").manual_seed(6)
+    for probe in ad.PROBES:
+        args = probe.make(gen, torch.device("cuda"))
+        ms, plain_ms = turns(lambda: probe.grads(*args),
+                             lambda: probe.grads(*args, ops=PLAIN_OPS), 10)
+        print(f"[K6] {probe.name}: hand-written backward {ms:.4f} ms, "
+              f"torch.autograd of the plain body {plain_ms:.4f} ms, "
+              f"max|kernel-plain| {errs[probe.name]:.3g}")
+
+    # The kernels only the backward passes launch, at ad_mask_relu_max's
+    # shapes: its relu and row mask, and its lane max's backward.
+    (x,) = ad.BY_NAME["ad_mask_relu_max"].make(gen, torch.device("cuda"))
+    keep = ad.ROW_KEEP
+    a = pr.relu_mask(x, *keep)
+    b = torch.roll(a, 64, 2)
+    gout = torch.randn(x.shape, generator=gen, device="cuda")
+    ga, gb, pa, pb = (torch.empty_like(x) for _ in range(4))
+
+    def max2_bwd():
+        pr.max2_bwd(a, b, gout, ga, gb)
+        return ga, gb
+
+    def max2_bwd_plain():
+        pr.max2_bwd_plain(a, b, gout, pa, pb)
+        return pa, pb
+
+    cases = {
+        "relu_mask": (lambda: pr.relu_mask(x, *keep),
+                      lambda: pr.relu_mask_plain(x, *keep),
+                      2 * nbytes(x), x.numel()),
+        "relu_mask_bwd": (lambda: pr.relu_mask_bwd(x, gout, *keep),
+                          lambda: pr.relu_mask_bwd_plain(x, gout, *keep),
+                          3 * nbytes(x), x.numel()),
+        "max2_bwd": (max2_bwd, max2_bwd_plain, 5 * nbytes(x),
+                     2 * x.numel()),
+    }
+    rows = {}
+    for name, (kern, plain, moved, ops) in cases.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((u - v).abs().max()) for u, v in zip(got, want))
+        if not all(torch.equal(u, v) for u, v in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(max err {err})")
+        rows[name] = probe_row(name, *turns(kern, plain), None, moved, ops,
+                               err)
+    return rows, run["launches"]
+
+
+def phase_dropout() -> tuple:
+    """10: K4's dropout; returns (its row without launches, its launches on
+    one call at full width)."""
+    from multimodal_fl_security_tpu_torch.benchmarks.fused_kernel_bench import (
+        run_bench,
+        run_check,
+    )
+    from multimodal_fl_security_tpu_torch.ops.client_dropout import (
+        dropout_apply,
+        dropout_apply_plain,
+    )
+    from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+        LAUNCHES_PER_DROPOUT_STEP,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape in ((100, 32, 3136), (100, 32, 128)):
+        for dt in (f32, bf16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            kw = dict(seed=7, step=37, stream=1, keep=0.75, dtype=dt)
+            got, want = dropout_apply(x, **kw), dropout_apply_plain(x, **kw)
+            if not torch.equal(got, want):
+                raise AssertionError(f"dropout {shape} {dt}: the kernel "
+                                     f"differs from its plain version")
+            kept = float((got != 0).float().mean())
+            print(f"[dropout] {shape} {dt}: bitwise the plain version; kept "
+                  f"{kept:.6f} (keep 0.75)")
+    x = torch.randn((100, 32, 3136), generator=gen, device="cuda").to(bf16)
+    kw = dict(seed=7, step=37, stream=0, keep=0.75, dtype=bf16)
+    ms, plain_ms = turns(lambda: dropout_apply(x, **kw),
+                         lambda: dropout_apply_plain(x, **kw), 10)
+    # 2.5 M Philox calls of ~100 integer operations, at the f32 rate.
+    bound_ms, bound_by = bound(2 * nbytes(x), x.numel() // 4 * 100)
+    print(f"[dropout] [100, 32, 3136] bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    row = {"name": "dropout_apply", "route": "cuda", "source": DROPOUT_SOURCE,
+           "replaces": DROPOUT_REPLACES, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+
+    check = run_check(use_dropout=True)
+    print(f"[dropout] run_check: {json.dumps(check)}")
+    if not check["max_abs_err_vs_mirror"] <= FUSED_CHECK_ATOL:
+        raise AssertionError(f"fused_local_train with dropout differs from "
+                             f"the mirror by {check['max_abs_err_vs_mirror']}"
+                             f" > {FUSED_CHECK_ATOL}")
+    t0 = time.perf_counter()
+    bench = run_bench(use_dropout=True)
+    print(f"[dropout] run_bench(use_dropout=True) in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(bench)}")
+    print(f"[dropout] ms per call: with dropout {bench['kernel_ms']:.3f}, "
+          f"without {bench['no_dropout_ms']:.3f}; mirror (masks given) "
+          f"{bench['mirror_ms']:.3f}, engine trainer {bench['engine_ms']:.3f}; "
+          f"max drift from the mirror {bench['max_drift_vs_mirror']:.6g}")
+    failures = []
+    if not bench["finite"]:
+        failures.append("non-finite parameters")
+    if bench["steps"] != 38 or bench["launches_total"] != \
+            LAUNCHES_PER_DROPOUT_STEP * 38:
+        failures.append(f"launches {bench['launches_total']} != "
+                        f"{LAUNCHES_PER_DROPOUT_STEP} x 38")
+    if not bench["bitwise_repeat"]:
+        failures.append("two calls with one seed differ")
+    if not bench["max_change_other_seed"] > 0:
+        failures.append("another seed gives the same parameters")
+    if not bench["fedavg_accuracy"] > DROPOUT_MIN_ACCURACY:
+        failures.append(f"FedAvg accuracy {bench['fedavg_accuracy']} <= "
+                        f"{DROPOUT_MIN_ACCURACY}")
+    if failures:
+        raise AssertionError("dropout path: " + "; ".join(failures))
+    return row, bench["launches"]["dropout_apply"]
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -886,20 +1183,28 @@ def main() -> None:
     robust = phase_robust_rounds()
     fused_rows = phase_fused_kernels()
     fused = phase_fused_path()
+    probe_rows, k5 = phase_probes()
+    ad_rows, k6 = phase_ad_probes()
+    drop_row, drop_launches = phase_dropout()
     # Each path ran with the counts set to 0 just before it.
     gram_row["launches"] = north_star + robust["gram"]
     sort_row["launches"] = robust["sorted_reduce"]
     for kernel, row in fused_rows.items():
         row["launches"] = fused[kernel]
+    for kernel, row in {**probe_rows, **ad_rows}.items():
+        row["launches"] = k5[kernel] + k6[kernel]
+    drop_row["launches"] = drop_launches
     print(f"[paths] gram launches: {north_star} (Krum north star) + "
           f"{robust['gram']} (R4); sorted_reduce launches: "
           f"{robust['sorted_reduce']} (R1-R4); fused local training (one "
-          f"call, 38 steps): {fused}")
-    missing = [k for k, r in fused_rows.items() if not r["launches"]]
+          f"call, 38 steps): {fused}; K5 probes: {k5}; K6 probes: {k6}; "
+          f"dropout (one call, 38 steps): {drop_launches}")
+    rows = [gram_row, sort_row, *fused_rows.values(), *probe_rows.values(),
+            *ad_rows.values(), drop_row]
+    missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
-    print(json.dumps({"kernels": [gram_row, sort_row,
-                                  *fused_rows.values()]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -15,14 +15,20 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
   with dropout: what the JAX bench compares against). It also counts the
   kernel path's launches per call, checks that two calls are bitwise
   equal, measures the drift from the mirror, and evaluates the FedAvg of
-  the trained clients on the bench's test set.
+  the trained clients and of the engine trainer's on the bench's test set.
+  With ``use_dropout`` the kernel path drops at rates 0.25 / 0.5 (Philox
+  masks drawn in the kernel) and the mirror takes the plain generator's
+  masks for the same seed; the bench adds the change that another seed
+  makes and times the call without dropout beside it.
+  ``run_check(use_dropout=True)`` holds the dropout path to the mirror in
+  the same way.
 
 Run on the card::
 
     python -m multimodal_fl_security_tpu_torch.benchmarks.fused_kernel_bench
 
 prints the card's name and power limit and one JSON line per mode;
-``--profile`` adds :func:`profile_call`'s line.
+``--profile`` adds :func:`profile_call`'s lines, without and with dropout.
 """
 
 from __future__ import annotations
@@ -59,13 +65,18 @@ def _sync(device) -> None:
 
 
 def run_check(device="cuda", clients: int = 4, n: int = 64,
-              in_channels: int = 8) -> Dict:
-    """The kernel path against the mirror at a small f32 shape."""
+              in_channels: int = 8, use_dropout: bool = False,
+              seed: int = 0) -> Dict:
+    """The kernel path against the mirror at a small f32 shape; with
+    ``use_dropout`` both drop with the masks of ``seed`` (the mirror's from
+    the plain generator)."""
     from multimodal_fl_security_tpu_torch.models import create_model, init_model
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         fused_local_train,
     )
     from multimodal_fl_security_tpu_torch.ops.fused_train import (
+        B,
+        dropout_masks_plain,
         mirror_local_train,
     )
 
@@ -79,15 +90,20 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
                         device=device)
     kw = dict(learning_rate=0.05, momentum=0.9, clip_norm=1.0,
               local_epochs=2, compute_dtype=torch.float32)
+    masks = dropout_masks_plain(seed, clients, B, 2 * n // B,
+                                dtype=torch.float32, device=device) \
+        if use_dropout else None
     with full_f32():
-        got = fused_local_train(params, images, labels, mask, **kw)
-        want = mirror_local_train(params, images, labels, mask, **kw)
+        got = fused_local_train(params, images, labels, mask,
+                                use_dropout=use_dropout, seed=seed, **kw)
+        want = mirror_local_train(params, images, labels, mask,
+                                  dropout_masks=masks, **kw)
     _sync(device)
     err = float((got - want).abs().max())
     moved = float((want - params).abs().max())
     return {"mode": "check", "ok": bool(err <= CHECK_ATOL), "clients": clients,
-            "atol": CHECK_ATOL, "max_abs_err_vs_mirror": err,
-            "max_param_move": moved}
+            "use_dropout": use_dropout, "atol": CHECK_ATOL,
+            "max_abs_err_vs_mirror": err, "max_param_move": moved}
 
 
 def _time_call(fn: Callable, device, iters: int) -> float:
@@ -112,16 +128,21 @@ def logical_flops_per_call(clients: int, samples: int, epochs: int) -> float:
 
 
 def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
-              iters: int = 3) -> Dict:
-    """The three trainers at the north-star width; see the module doc."""
+              iters: int = 3, use_dropout: bool = False,
+              seed: int = 0) -> Dict:
+    """The three trainers at the north-star width, with dropout if asked;
+    see the module doc."""
     from multimodal_fl_security_tpu_torch.bench import build_engine
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+        DROPOUT_STEP_KERNELS,
+        LAUNCHES_PER_DROPOUT_STEP,
         LAUNCHES_PER_STEP,
         STEP_KERNELS,
         fused_local_train,
     )
     from multimodal_fl_security_tpu_torch.ops.fused_train import (
         B,
+        dropout_masks_plain,
         mirror_local_train,
     )
     from multimodal_fl_security_tpu_torch.ops.reductions import weighted_mean
@@ -136,64 +157,85 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     steps = LOCAL_EPOCHS * (mask.shape[1] // B)
     kw = dict(learning_rate=LEARNING_RATE, momentum=0.9, clip_norm=1.0,
               local_epochs=LOCAL_EPOCHS, compute_dtype=torch.bfloat16)
+    masks = dropout_masks_plain(seed, num_clients, B, steps,
+                                device=device) if use_dropout else None
+    counted = DROPOUT_STEP_KERNELS if use_dropout else STEP_KERNELS
     gen = torch.Generator(device).manual_seed(0)
     local_train = make_local_train_fn(engine.model, engine.spec,
                                       mask.shape[1])
 
-    def kernel():
-        return fused_local_train(params, images, labels, mask, **kw)
+    def kernel(drop=use_dropout, at_seed=seed):
+        return fused_local_train(params, images, labels, mask,
+                                 use_dropout=drop, seed=at_seed, **kw)
 
     def mirror():
-        return mirror_local_train(params, images, labels, mask, **kw)
+        return mirror_local_train(params, images, labels, mask,
+                                  dropout_masks=masks, **kw)
 
     def engine_trainer():
         return local_train(params, engine.arrays, mask, gen)[0]
 
+    def fedavg(clients):
+        return evaluate_model(engine.model,
+                              weighted_mean(clients, engine.counts), test_set)
+
     # One counted call, then a second for the bitwise check.
-    for fn in STEP_KERNELS:
+    for fn in counted:
         fn.launches = 0
     out = kernel()
     _sync(device)
-    launches = {fn.__name__: fn.launches for fn in STEP_KERNELS}
+    launches = {fn.__name__: fn.launches for fn in counted}
     again = kernel()
     ref = mirror()
     _sync(device)
     bitwise = bool(torch.equal(out, again))
     drift = float((out - ref).abs().max())
     finite = bool(torch.isfinite(out).all())
-    agg = weighted_mean(out, engine.counts)
-    ev = evaluate_model(engine.model, agg, test_set)
+    ev = fedavg(out)
+    extra = {}
+    if use_dropout:
+        extra["max_change_other_seed"] = float(
+            (out - kernel(at_seed=seed + 1)).abs().max())
     del again, ref
-
-    engine_trainer()  # warm-up of the one trainer not yet run
-    # In turns: kernel, mirror, engine, kernel.
+    # The one trainer not yet run: its warm-up, and its FedAvg accuracy
+    # (it drops at the model's rates from its own generator).
+    extra["engine_fedavg_accuracy"] = float(fedavg(engine_trainer())["accuracy"])
+    # In turns: kernel, mirror, engine, (without dropout twice), kernel.
     kern_a = _time_call(kernel, device, iters)
     mirror_ms = _time_call(mirror, device, iters)
     engine_ms = _time_call(engine_trainer, device, iters)
+    if use_dropout:
+        runs = [_time_call(lambda: kernel(drop=False), device, iters)
+                for _ in range(2)]
+        extra.update(no_dropout_ms=sum(runs) / 2, no_dropout_ms_runs=runs)
     kern_b = _time_call(kernel, device, iters)
     kernel_ms = (kern_a + kern_b) / 2
     flops = logical_flops_per_call(num_clients, samples, LOCAL_EPOCHS)
+    per_step = LAUNCHES_PER_DROPOUT_STEP if use_dropout else LAUNCHES_PER_STEP
     return {
-        "mode": "bench", "clients": num_clients, "steps": steps,
-        "kernel_ms": kernel_ms, "kernel_ms_runs": [kern_a, kern_b],
+        "mode": "bench", "use_dropout": use_dropout, "clients": num_clients,
+        "steps": steps, "kernel_ms": kernel_ms,
+        "kernel_ms_runs": [kern_a, kern_b],
         "mirror_ms": mirror_ms, "engine_ms": engine_ms,
         "ms_per_step": kernel_ms / steps,
         "launches": launches, "launches_total": sum(launches.values()),
-        "launches_expected": LAUNCHES_PER_STEP * steps,
+        "launches_expected": per_step * steps,
         "bitwise_repeat": bitwise, "finite": finite,
         "max_drift_vs_mirror": drift,
         "fedavg_accuracy": float(ev["accuracy"]),
         "fedavg_loss": float(ev["loss"]),
         "logical_tflop": flops / 1e12,
         "logical_tflops_per_s": flops / (kernel_ms * 1e-3) / 1e12,
+        **extra,
     }
 
 
 def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
-                 top: int = 12) -> Dict:
-    """``torch.profiler`` over one kernel-path call at the north-star width,
-    after a warm-up call: the device's busy time and idle share over the
-    span of its events, the kernels launched, and device time by kernel."""
+                 top: int = 12, use_dropout: bool = False) -> Dict:
+    """``torch.profiler`` over one kernel-path call at the north-star width
+    (with dropout if asked), after a warm-up call: the device's busy time
+    and idle share over the span of its events, the kernels launched, and
+    device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -204,7 +246,8 @@ def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
 
     engine, params, _ = build_engine(device, num_clients, samples)
     kw = dict(learning_rate=LEARNING_RATE, momentum=0.9, clip_norm=1.0,
-              local_epochs=LOCAL_EPOCHS, compute_dtype=torch.bfloat16)
+              local_epochs=LOCAL_EPOCHS, compute_dtype=torch.bfloat16,
+              use_dropout=use_dropout)
 
     def call():
         return fused_local_train(params, engine.arrays["image"],
@@ -233,7 +276,7 @@ def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
-    return {"mode": "profile", "wall_ms": wall_ms,
+    return {"mode": "profile", "use_dropout": use_dropout, "wall_ms": wall_ms,
             "device_span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / span, "device_events": len(events),
             "kernel_launches": len(events) - copies,
@@ -247,15 +290,20 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one kernel-path call")
+                    help="also profile one kernel-path call, without and "
+                         "with dropout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the fused-training bench needs a CUDA device")
     print(nvidia_smi_line())
     print(json.dumps(run_check()), flush=True)
     print(json.dumps(run_bench()), flush=True)
+    print(json.dumps(run_check(use_dropout=True)), flush=True)
+    print(json.dumps(run_bench(use_dropout=True)), flush=True)
     if args.profile:
-        print(json.dumps(profile_call()), flush=True)
+        for use_dropout in (False, True):
+            print(json.dumps(profile_call(use_dropout=use_dropout)),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -103,13 +103,18 @@ class SimpleCNN(nn.Module):
 
     def forward(self, params: torch.Tensor, x: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                = None) -> torch.Tensor:
         """Logits (f32) of every client's model on its own batch.
 
         ``params`` ``[C, D]`` with ``x`` ``[C, B, C_in, H, W]`` gives
         ``[C, B, num_classes]``; ``params`` ``[D]`` with ``x``
         ``[B, C_in, H, W]`` gives ``[B, num_classes]``. ``train`` turns the
-        dropout layers on, drawing their masks from ``generator``.
+        dropout layers on, drawing their masks from ``generator``;
+        ``dropout_masks`` (``[C, B, 64*h*w]`` and ``[C, B, hidden]``, 1/keep
+        where kept) are applied instead, cast to the compute dtype, as the
+        JAX package's ``fused_train.py:404-412`` applies given masks.
         """
         single = params.dim() == 1
         if single:
@@ -128,10 +133,17 @@ class SimpleCNN(nn.Module):
         # [B, C*64, h, w] -> [C, B, 64*h*w]: per-client (c, h, w) flatten
         h = h.reshape(batch, clients, -1).transpose(0, 1)
         rate1, rate2 = self.dropout_rates if train else (0.0, 0.0)
+        if dropout_masks is not None:
+            rate1 = rate2 = 0.0
+            m1, m2 = (m.to(dt).reshape(clients, batch, -1)
+                      for m in dropout_masks)
+            h = h * m1
         h = dropout(h, rate1, generator)
         h = torch.baddbmm(p["fc1.bias"].to(dt).unsqueeze(1), h,
                           p["fc1.weight"].to(dt).transpose(1, 2))
         h = dropout(F.relu(h), rate2, generator)
+        if dropout_masks is not None:
+            h = h * m2
         logits = torch.baddbmm(p["fc2.bias"].unsqueeze(1), h.float(),
                                p["fc2.weight"].transpose(1, 2))
         return logits[0] if single else logits

@@ -1,0 +1,113 @@
+"""Per-client inverted dropout with its mask drawn in the kernel (K4).
+
+Counterpart of the dropout of ``multimodal_fl_security_tpu/ops/
+fused_kernel.py::fused_local_train`` (``:403-413``). :func:`dropout_apply`
+launches the hand-written kernel of ``csrc/client_dropout.cu`` for a CUDA
+tensor, or raises, and runs :func:`dropout_apply_plain` for a CPU tensor.
+
+The mask of client c at global SGD step s on ``stream`` is a pure function
+of ``(seed, c, s, stream)`` (``ops/philox.py``'s counter layout): a word
+below ``uint32(keep * 2**32)`` keeps its element. As in the JAX kernel, the
+mask is 1/keep where kept, computed in the compute dtype, and multiplies
+the activation in that dtype; the backward multiplies the gradient by the
+same regenerated mask.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from multimodal_fl_security_tpu_torch.ops import _build
+from multimodal_fl_security_tpu_torch.ops._launch import (
+    MftView,
+    check,
+    require_cuda,
+    stream_of,
+    view,
+)
+from multimodal_fl_security_tpu_torch.ops.philox import (
+    keep_threshold,
+    philox_bits_plain,
+)
+
+_AXES = (0, 1, 2)  # (client, sample, feature)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("client_dropout")
+    p = ctypes.POINTER(MftView)
+    i, u64 = ctypes.c_int, ctypes.c_ulonglong
+    lib.mft_dropout.argtypes = [p, p, u64, i, i, i, i, i, u64,
+                                ctypes.c_float, i, ctypes.c_void_p]
+    lib.mft_dropout.restype = i
+    lib.mft_client_dropout_error_string.argtypes = [i]
+    lib.mft_client_dropout_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_rate(rate: float) -> float:
+    """The keep probability of a dropout ``rate`` in [0, 1); raises
+    otherwise."""
+    if not 0.0 <= float(rate) < 1.0:
+        raise ValueError(f"dropout rates must lie in [0, 1), got {rate}")
+    return 1.0 - float(rate)
+
+
+def mask_scale(keep: float, dtype: torch.dtype) -> float:
+    """1/keep computed in ``dtype``, as ``fused_kernel.py:408-409`` divides."""
+    one = torch.ones((), dtype=dtype)
+    return float(one / torch.tensor(keep, dtype=dtype))
+
+
+def dropout_mask_plain(seed: int, shape, step: int, stream: int,
+                       keep: float, dtype: torch.dtype,
+                       device="cpu") -> torch.Tensor:
+    """The mask [C, B, F] in ``dtype``: 1/keep where the word keeps the
+    element, else 0, from the plain generator."""
+    bits = philox_bits_plain(seed, tuple(shape), step, stream, device)
+    kept = (bits < keep_threshold(keep)).to(dtype)
+    return kept / torch.tensor(keep, dtype=dtype, device=device)
+
+
+def dropout_apply_plain(x, *, seed, step, stream, keep, dtype):
+    """Plain version of :func:`dropout_apply`."""
+    m = dropout_mask_plain(seed, x.shape, step, stream, keep, dtype,
+                           x.device)
+    return x.to(dtype) * m
+
+
+def dropout_apply(x: torch.Tensor, *, seed: int, step: int, stream: int,
+                  keep: float, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` [C, B, F] (any strides, in ``dtype``) times its client's mask
+    at global step ``step`` on ``stream``: a new contiguous [C, B, F] in
+    ``dtype``. ``dropout_apply.launches`` counts kernel launches."""
+    if x.dim() != 3:
+        raise ValueError(f"need x [C, B, F], got {tuple(x.shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dropout runs in f32 or bf16, got {dtype}")
+    if x.device.type == "cpu":
+        return dropout_apply_plain(x, seed=seed, step=step, stream=stream,
+                                   keep=keep, dtype=dtype)
+    if x.dtype != dtype:
+        raise TypeError(f"x must be in the compute dtype {dtype}, got "
+                        f"{x.dtype}")
+    device = require_cuda(x)
+    c, b, f = x.shape
+    y = torch.empty((c, b, f), dtype=dtype, device=device)
+    lib = _library()
+    err = lib.mft_dropout(ctypes.byref(view(x, _AXES)),
+                          ctypes.byref(view(y, _AXES)),
+                          int(seed) & 0xFFFFFFFFFFFFFFFF, c, b, f, step,
+                          stream, keep_threshold(keep),
+                          mask_scale(keep, dtype), device.index,
+                          stream_of(x))
+    check(lib, err, "dropout_apply", "client_dropout")
+    dropout_apply.launches += 1
+    return y
+
+
+dropout_apply.launches = 0

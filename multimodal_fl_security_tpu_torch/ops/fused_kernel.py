@@ -18,7 +18,13 @@ launches over all C clients at once:
     client_sq_norm    per-client squared-norm partials
     client_sgd_update clip, momentum, update, in place
 
-:data:`LAUNCHES_PER_STEP` counts them. The kernels read each layer's
+:data:`LAUNCHES_PER_STEP` counts them. With ``use_dropout`` four more
+launches of ``dropout_apply`` (``csrc/client_dropout.cu``) apply the
+Philox masks: to fc1's input and to its relu output in the forward, and,
+regenerated, to the two gradients in the backward
+(:data:`DROPOUT_STEP_KERNELS`, :data:`LAUNCHES_PER_DROPOUT_STEP`). The
+dropped activations are new buffers: conv2's gradient kernels read the
+pooled map itself. The kernels read each layer's
 weights in place from the ``[C, D]`` parameter buffer and write gradients
 straight into the ``[C, D]`` gradient buffer's segments (the port's
 ``FlatLayout``): no per-step copies of weights or gradients. The call
@@ -33,7 +39,9 @@ place, so the CPU tests exercise this decomposition and its glue.
 Semantics are those of the JAX kernel and ``fused_train.py::
 mirror_local_train``: resident batch order, a fresh zero momentum per
 client, masked mean CE, the clip over each client's logical gradient,
-m = g*scale + mu*m, p -= lr*m, no weight decay. Dropout is not ported.
+m = g*scale + mu*m, p -= lr*m, no weight decay; dropout at rates
+(0.25, 0.5) on fc1's input and output, per (client, step), as
+``fused_kernel.py:403-413`` draws it, on Philox instead of the TPU's bits.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ from multimodal_fl_security_tpu_torch.ops.client_dense import (
     dense_bwd,
     dense_fwd,
 )
+from multimodal_fl_security_tpu_torch.ops.client_dropout import (
+    check_rate,
+    dropout_apply,
+)
 from multimodal_fl_security_tpu_torch.ops.client_sgd import (
     client_ce,
     client_sgd_update,
@@ -59,6 +71,10 @@ from multimodal_fl_security_tpu_torch.ops.fused_train import (
     NCLS,
     check_inputs,
 )
+from multimodal_fl_security_tpu_torch.ops.philox import (
+    STREAM_FC1_IN,
+    STREAM_FC1_OUT,
+)
 
 #: the kernel wrappers one SGD step launches, with their launches per step
 STEP_KERNELS = {conv_fwd: 2, dense_fwd: 2, client_ce: 1, dense_bwd: 2,
@@ -66,31 +82,50 @@ STEP_KERNELS = {conv_fwd: 2, dense_fwd: 2, client_ce: 1, dense_bwd: 2,
                 client_sgd_update: 1}
 #: kernel launches of one SGD step over all clients (12)
 LAUNCHES_PER_STEP = sum(STEP_KERNELS.values())
+#: the same with dropout: each mask applied forward and backward
+DROPOUT_STEP_KERNELS = {**STEP_KERNELS, dropout_apply: 4}
+#: kernel launches of one SGD step with dropout (16)
+LAUNCHES_PER_DROPOUT_STEP = sum(DROPOUT_STEP_KERNELS.values())
 
 
-def step_grads(views, grads, x, labels, mask, dtype) -> torch.Tensor:
+def step_grads(views, grads, x, labels, mask, dtype,
+               dropout=None) -> torch.Tensor:
     """Forward, loss and backward of every client on batch ``x``
     [C, B, cin, 28, 28]: writes each layer's gradient into ``grads`` (views
     of the [C, D] gradient buffer) from the parameters' ``views``, and
-    returns each client's loss [C]."""
+    returns each client's loss [C]. ``dropout`` is None or ``(seed, step,
+    keep1, keep2)``: the masks of global step ``step``."""
     f32 = torch.float32
     c, bsz = x.shape[:2]
+
+    def drop(t, stream, keep):  # the identity without dropout
+        if dropout is None:
+            return t
+        return dropout_apply(t, seed=dropout[0], step=dropout[1],
+                             stream=stream, keep=keep, dtype=dtype)
+
+    keep1, keep2 = dropout[2:] if dropout is not None else (1.0, 1.0)
     h1, a1 = conv_fwd(x, views["conv1.weight"], views["conv1.bias"],
                       dtype=dtype, channels_last=True)
     h3, a3 = conv_fwd(h1, views["conv2.weight"], views["conv2.bias"],
                       dtype=dtype)
     f3 = h3.view(c, bsz, -1)  # (c, h, w) flatten: fc1.weight's input order
-    h4 = dense_fwd(f3, views["fc1.weight"], views["fc1.bias"], relu=True,
+    f3d = drop(f3, STREAM_FC1_IN, keep1)  # a new buffer: h3 stays as it is
+    h4 = dense_fwd(f3d, views["fc1.weight"], views["fc1.bias"], relu=True,
                    wdtype=dtype, out_dtype=dtype)
-    logits = dense_fwd(h4, views["fc2.weight"], views["fc2.bias"],
+    h4d = drop(h4, STREAM_FC1_OUT, keep2)
+    logits = dense_fwd(h4d, views["fc2.weight"], views["fc2.bias"],
                        wdtype=f32, out_dtype=f32)
     loss, dlogits = client_ce(logits, labels, mask)
-    dz4 = dense_bwd(dlogits, h4, views["fc2.weight"], grads["fc2.weight"],
-                    grads["fc2.bias"], mask=h4, wdtype=f32, gdtype=f32,
-                    dx_dtype=dtype)
-    dh3 = dense_bwd(dz4, f3, views["fc1.weight"], grads["fc1.weight"],
-                    grads["fc1.bias"], wdtype=dtype, gdtype=dtype,
-                    dx_dtype=dtype).view(h3.shape)
+    # mask=h4d zeroes where relu or the dropout did; drop() then scales.
+    dz4 = drop(dense_bwd(dlogits, h4d, views["fc2.weight"],
+                         grads["fc2.weight"], grads["fc2.bias"], mask=h4d,
+                         wdtype=f32, gdtype=f32, dx_dtype=dtype),
+               STREAM_FC1_OUT, keep2)
+    dh3 = drop(dense_bwd(dz4, f3d, views["fc1.weight"], grads["fc1.weight"],
+                         grads["fc1.bias"], wdtype=dtype, gdtype=dtype,
+                         dx_dtype=dtype),
+               STREAM_FC1_IN, keep1).view(h3.shape)
     conv_wgrad(h1, dh3, h3, a3, grads["conv2.weight"], grads["conv2.bias"],
                dtype=dtype)
     dh1 = conv_dgrad(dh3, h3, a3, views["conv2.weight"], tuple(h1.shape[3:]),
@@ -105,17 +140,22 @@ def fused_local_train(params: torch.Tensor, images: torch.Tensor,
                       learning_rate: float, momentum: float = 0.9,
                       clip_norm: float = 1.0, local_epochs: int = 1,
                       compute_dtype: torch.dtype = torch.bfloat16,
-                      use_dropout: bool = False) -> torch.Tensor:
+                      use_dropout: bool = False,
+                      dropout_rates=(0.25, 0.5),
+                      seed: int = 0) -> torch.Tensor:
     """Every client's local SGD from the global ``params`` [D] (f32, the
     port's ``FlatLayout`` for SimpleCNN): ``images`` [C, N, cin, 28, 28],
     ``labels`` and ``bmask`` [C, N] (0 = padded row), N a multiple of 32.
     Step s reads rows ``(s % steps)*32 .. +32``; ``local_epochs`` passes.
     Compute runs in ``compute_dtype`` (fc2 in f32); parameters and momentum
-    stay f32. Returns the clients' parameters [C, D]."""
+    stay f32. ``use_dropout`` drops fc1's input and output at
+    ``dropout_rates`` with the masks of ``seed`` (``ops/philox.py``).
+    Returns the clients' parameters [C, D]."""
     from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
 
-    c, _, steps, cin = check_inputs(params, images, labels, bmask,
-                                    use_dropout)
+    c, _, steps, cin = check_inputs(params, images, labels, bmask)
+    keeps = tuple(check_rate(r) for r in dropout_rates) if use_dropout \
+        else ()
     layout = SimpleCNN(num_classes=NCLS).layout(cin)
     if params.shape[0] != layout.dim:
         raise ValueError(f"params has {params.shape[0]} elements; SimpleCNN "
@@ -132,7 +172,8 @@ def fused_local_train(params: torch.Tensor, images: torch.Tensor,
     for s in range(local_epochs * steps):
         i = (s % steps) * B
         step_grads(views, grads, images[:, i:i + B], labels[:, i:i + B],
-                   mask[:, i:i + B], compute_dtype)
+                   mask[:, i:i + B], compute_dtype,
+                   (seed, s, *keeps) if use_dropout else None)
         client_sgd_update(p, mom, grad, client_sq_norm(grad),
                           lr=learning_rate, momentum=momentum,
                           clip_norm=clip_norm)

@@ -17,20 +17,28 @@ from __future__ import annotations
 
 import torch
 
+from multimodal_fl_security_tpu_torch.ops.client_dropout import (
+    check_rate,
+    dropout_mask_plain,
+)
+from multimodal_fl_security_tpu_torch.ops.philox import (
+    STREAM_FC1_IN,
+    STREAM_FC1_OUT,
+)
+
 #: local batch size (``fused_train.py``'s B)
 B = 32
 #: classes of the SimpleCNN that local training runs
 NCLS = 10
 
-_DROPOUT = ("dropout inside the fused trainer is not ported yet (JAX: "
-            "multimodal_fl_security_tpu/ops/fused_kernel.py:403-413 draws it "
-            "from the TPU's own random bits)")
+#: fc1's input width: the pooled [64, 7, 7] map, (c, h, w) flattened
+F1 = 64 * 7 * 7
+#: fc1's output width
+HID = 128
 
 
-def check_inputs(params, images, labels, bmask, use_dropout):
+def check_inputs(params, images, labels, bmask):
     """Validate the trainers' shared arguments; returns (C, N, steps, cin)."""
-    if use_dropout:
-        raise NotImplementedError(_DROPOUT)
     if images.dim() != 5 or tuple(images.shape[3:]) != (28, 28):
         raise ValueError(f"images must be [C, N, cin, 28, 28], got "
                          f"{tuple(images.shape)}")
@@ -44,18 +52,40 @@ def check_inputs(params, images, labels, bmask, use_dropout):
     return c, n, n // B, cin
 
 
+def dropout_masks_plain(seed: int, clients: int, batch: int, steps: int,
+                        rates=(0.25, 0.5), dtype: torch.dtype = torch.bfloat16,
+                        device="cpu"):
+    """The dropout masks of ``fused_local_train(use_dropout=True)`` for
+    ``steps`` global steps, from the plain Philox generator: (m1 [S, C, B,
+    3136] on fc1's input, m2 [S, C, B, 128] on its relu output), 1/keep
+    where kept, in ``dtype``, as the JAX kernel makes them
+    (``fused_kernel.py:403-413``; JAX's mirror takes them pre-scaled,
+    ``fused_train.py:538-539``)."""
+    keep1, keep2 = (check_rate(r) for r in rates)
+    return tuple(torch.stack([
+        dropout_mask_plain(seed, (clients, batch, width), s, stream, keep,
+                           dtype, device)
+        for s in range(steps)])
+        for width, stream, keep in ((F1, STREAM_FC1_IN, keep1),
+                                    (HID, STREAM_FC1_OUT, keep2)))
+
+
 def mirror_local_train(params: torch.Tensor, images: torch.Tensor,
                        labels: torch.Tensor, bmask: torch.Tensor, *,
                        learning_rate: float, momentum: float = 0.9,
                        clip_norm: float = 1.0, local_epochs: int = 1,
                        compute_dtype: torch.dtype = torch.bfloat16,
-                       use_dropout: bool = False) -> torch.Tensor:
+                       dropout_masks=None) -> torch.Tensor:
     """Every client's local SGD from the global ``params`` [D], as the
     engine trains it but in resident order: step s reads rows
     ``(s % steps)*32 .. +32`` of each client's ``images`` [C, N, cin, 28,
     28], ``labels`` and ``bmask`` [C, N]; masked mean CE; clip at global
     norm ``clip_norm`` per client, momentum, lr; a fresh zero momentum per
-    client; no weight decay, no dropout. Returns the clients' [C, D]."""
+    client; no weight decay. ``dropout_masks`` = (m1 [S, C, B, 3136],
+    m2 [S, C, B, 128]), pre-scaled and indexed by global step (those of
+    ``fused_local_train(use_dropout=True, seed=...)`` come from
+    :func:`dropout_masks_plain`), or None for no dropout. Returns the
+    clients' [C, D]."""
     from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
     from multimodal_fl_security_tpu_torch.rounds.engine import (
         TrainSpec,
@@ -63,7 +93,7 @@ def mirror_local_train(params: torch.Tensor, images: torch.Tensor,
         sgd_step,
     )
 
-    c, _, steps, _ = check_inputs(params, images, labels, bmask, use_dropout)
+    c, _, steps, _ = check_inputs(params, images, labels, bmask)
     model = SimpleCNN(num_classes=NCLS, dtype=compute_dtype,
                       dropout_rates=(0.0, 0.0))
     spec = TrainSpec(learning_rate=learning_rate, momentum=momentum,
@@ -74,7 +104,9 @@ def mirror_local_train(params: torch.Tensor, images: torch.Tensor,
     trace = torch.zeros_like(stacked)
     for s in range(local_epochs * steps):
         i = (s % steps) * B
-        logits = model(stacked, images[:, i:i + B])
+        masks = None if dropout_masks is None else \
+            (dropout_masks[0][s], dropout_masks[1][s])
+        logits = model(stacked, images[:, i:i + B], dropout_masks=masks)
         losses = cross_entropy(logits, labels[:, i:i + B], bmask[:, i:i + B])
         stacked.grad = None
         losses.sum().backward()  # disjoint rows: row c is client c's gradient

@@ -25,6 +25,7 @@ from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
     fused_local_train,
 )
 from multimodal_fl_security_tpu_torch.ops.fused_train import (
+    dropout_masks_plain,
     mirror_local_train,
 )
 
@@ -141,8 +142,14 @@ def test_dropout_and_weight_decay_are_refused(trainer):
     x = torch.zeros((1, 32, 1, 28, 28))
     labels = torch.zeros((1, 32), dtype=torch.long)
     mask = torch.ones((1, 32))
-    with pytest.raises(NotImplementedError, match="fused_kernel.py:403-413"):
-        trainer(params, x, labels, mask, learning_rate=0.1, use_dropout=True)
+    # Dropout runs (tests/test_torch_port_dropout.py); a rate outside
+    # [0, 1) is refused, by the kernel path and by the mirror's masks.
+    with pytest.raises(ValueError, match="dropout rates"):
+        if trainer is mirror_local_train:
+            dropout_masks_plain(0, 1, 32, 1, rates=(0.25, 1.0))
+        else:
+            trainer(params, x, labels, mask, learning_rate=0.1,
+                    use_dropout=True, dropout_rates=(0.25, 1.0))
     with pytest.raises(TypeError, match="weight_decay"):
         trainer(params, x, labels, mask, learning_rate=0.1, weight_decay=0.1)
     with pytest.raises(ValueError, match="multiple of the batch size"):
