@@ -10,7 +10,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    power limit as ``nvidia-smi`` reports them. TF32 is switched off for
    matmuls and convolutions, so f32 comparisons are f32.
 2. Build: compiles every ``csrc/*.cu`` with nvcc for sm_90a, one process
-   each, all at once (timed; registers, shared memory and spills).
+   each, all at once (timed; registers, shared memory and spills); requires
+   HMMA/HGMMA instructions in the SASS of every tensor-core kernel.
 3. Gram kernel against its plain version at the main path's
    [100, 421,642] and at ragged shapes. Requires max|G_kernel - G_plain|
    <= 1e-5 * max|G_plain|, the same Krum pick from both, and two kernel
@@ -40,13 +41,18 @@ paths and fails loudly on anything wrong. Phases, in order:
    and backward; CE; SGD at [100, 421,642]) and K3's raw stem conv at
    [100, 32, 28*28*8] x [100, 4, 4, 8, 128], in f32 with TF32 off (max
    |kernel - plain| <= 1e-5 * max|plain|) and in bf16 (<= 1e-2 * max|plain|,
-   one rounding apart), timed in turns with CUDA events beside the one
-   PyTorch call that computes the same product (cuDNN, ``baddbmm``);
+   one rounding apart; the gradients on the tensor-core kernels), timed in
+   turns with CUDA events beside the one PyTorch call that computes the
+   same product (cuDNN, ``baddbmm``): conv2's gradient kernels in both
+   dtypes (CUDA-core in f32, tensor-core in bf16), the rest in bf16, the
+   stem's forward and weight gradient with their library calls and bounds;
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
-   ``mirror_local_train`` within 1e-4 at f32); (c) ``run_bench()`` at full
-   width in bf16: finite parameters, 12 launches per step x 38 steps, two
-   calls bitwise equal, FedAvg test accuracy > 0.5; prints the kernel
-   path's, the mirror's and the engine trainer's ms per call.
+   ``mirror_local_train`` within 1e-4 at f32, its gradients on the
+   CUDA-core kernels); (c) ``run_bench()`` at full width in bf16: finite
+   parameters, 12 launches per step x 38 steps, every gradient launch on
+   the tensor-core kernels (76 + 38), two calls bitwise equal, FedAvg test
+   accuracy > 0.5; prints the kernel path's, the mirror's and the engine
+   trainer's ms per call.
 8. The Mosaic probe set (K5): ``benchmarks/mosaic_probe.run_probes()``,
    every probe's kernel path against its plain version (layout, generator
    and carried sums bitwise, the rest within the JAX probe's tolerance);
@@ -61,10 +67,11 @@ paths and fails loudly on anything wrong. Phases, in order:
    [100, 32, 3136] and [100, 32, 128], f32 and bf16);
    ``run_check(use_dropout=True)`` (C=4, f32, against the mirror fed the
    plain generator's masks, within 1e-4); ``run_bench(use_dropout=True)``
-   at full width in bf16: 16 launches per step x 38 steps, a bitwise
-   repeat with the same seed, another result with another seed, finite
-   parameters, FedAvg test accuracy > 0.3, the drift from the mirror fed
-   the same masks, and ms per call beside the call without dropout.
+   at full width in bf16: 16 launches per step x 38 steps (the gradients
+   on the tensor-core kernels), a bitwise repeat with the same seed,
+   another result with another seed, finite parameters, FedAvg test
+   accuracy > 0.3, the drift from the mirror fed the same masks, and ms per
+   call beside the call without dropout.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -75,8 +82,10 @@ from __future__ import annotations
 
 import json
 import math
+import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -200,6 +209,31 @@ def phase_build() -> None:
                 print(f"[build] {line.strip()}")
     print(f"[build] {len(modules)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
+    check_tensor_cores(next(p for p, _, _ in builds
+                            if p.name.startswith("libclient_conv-")))
+
+
+def check_tensor_cores(lib) -> None:
+    """``cuobjdump -sass`` of the conv library: every tensor-core kernel
+    (``*_tc_kernel``) holds HMMA (mma.sync) or HGMMA (wgmma) instructions."""
+    from multimodal_fl_security_tpu_torch.ops._build import find_nvcc
+
+    sass = subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    tc = {n: k for n, k in counts.items() if "_tc_kernel" in n}
+    for n, k in tc.items():
+        short = n.split("client_conv_cu_")[-1]
+        print(f"[build] SASS {short}: {k} HMMA/HGMMA")
+    if not tc or not all(tc.values()):
+        raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
 
 
 def bound(nbytes_moved: float, flops: float,
@@ -756,16 +790,13 @@ def phase_fused_kernels() -> dict:
                               cc.client_stem_conv_plain(x3.to(dt), w4.to(dt)),
                               dt)
 
-    # Times, at the path's dtype (bf16), with each kernel's bound.
+    # Times, at each kernel's dtype (bf16 for the path's kernels, f32 for
+    # the CUDA-core gradient kernels of the checking mode), with bounds.
     t = timed[bf16]
     w2, b2 = v["conv2.weight"], v["conv2.bias"]
     w1, b1 = v["fc1.weight"], v["fc1.bias"]
     xg = cc._grouped(t["h1"]).contiguous()
     wg = w2.to(bf16).reshape(-1, *w2.shape[2:])
-    dzg = cc._grouped(cc._dense_dz(t["dh3"], t["h3"], t["a3"], 14, 14)
-                      ).to(bf16).contiguous()
-    live3 = int(((t["h3"] > 0) & (t["dh3"] != 0)).sum())
-    live1 = int(((t["h1"] > 0) & (t["dh1"] != 0)).sum())
     conv2_flops = 2 * c * 32 * 64 * 32 * 9 * 14 * 14
     x3b, w4b = x3.to(bf16), w4.to(bf16)
     x3g = cc._grouped(x3b.view(c, 32, 28, 28, 8).permute(0, 1, 4, 2, 3)
@@ -776,6 +807,38 @@ def phase_fused_kernels() -> dict:
     gwc1 = torch.empty_like(v["conv1.weight"])
     gbc1 = torch.empty_like(v["conv1.bias"])
     pk2, mk2 = p.clone(), mom.clone()
+
+    def conv_grads(dt, suffix):
+        """conv2's weight and input gradients at dtype dt: bf16 runs the
+        tensor-core kernels (suffix "_tc"), f32 the CUDA-core ones."""
+        a = timed[dt]
+        xgd = cc._grouped(a["h1"]).contiguous()
+        wgd = w2.to(dt).reshape(-1, *w2.shape[2:])
+        dzg = cc._grouped(cc._dense_dz(a["dh3"], a["h3"], a["a3"], 14, 14)
+                          ).to(dt).contiguous()
+        live3 = int(((a["h3"] > 0) & (a["dh3"] != 0)).sum())
+        return {
+            "conv_wgrad" + suffix: (
+                lambda: cc.conv_wgrad(a["h1"], a["dh3"], a["h3"], a["a3"],
+                                      gw2, gb2, dtype=dt),
+                lambda: cc.conv_wgrad_plain(a["h1"], a["dh3"], a["h3"],
+                                            a["a3"], gw2, gb2, dtype=dt),
+                lambda: torch.nn.grad.conv2d_weight(xgd, wgd.shape, dzg,
+                                                    padding=1, groups=c),
+                nbytes(a["h1"], a["dh3"], a["h3"], a["a3"], w2, b2),
+                2 * live3 * (32 * 9 + 1), dt),
+            "conv_dgrad" + suffix: (
+                lambda: cc.conv_dgrad(a["dh3"], a["h3"], a["a3"], w2,
+                                      (14, 14), dtype=dt,
+                                      channels_last=True),
+                lambda: cc.conv_dgrad_plain(a["dh3"], a["h3"], a["a3"], w2,
+                                            (14, 14), dtype=dt),
+                lambda: torch.nn.grad.conv2d_input(xgd.shape, wgd, dzg,
+                                                   padding=1, groups=c),
+                nbytes(a["dh3"], a["h3"], a["a3"], w2, a["dh1"]),
+                2 * live3 * 32 * 9, dt),
+        }
+
     cases = {
         "conv_fwd": (
             lambda: cc.conv_fwd(t["h1"], w2, b2, dtype=bf16),
@@ -783,24 +846,8 @@ def phase_fused_kernels() -> dict:
             lambda: F.conv2d(xg, wg, b2.to(bf16).reshape(-1), padding=1,
                              groups=c),
             nbytes(t["h1"], w2, b2, t["h3"], t["a3"]), conv2_flops, bf16),
-        "conv_wgrad": (
-            lambda: cc.conv_wgrad(t["h1"], t["dh3"], t["h3"], t["a3"], gw2,
-                                  gb2, dtype=bf16),
-            lambda: cc.conv_wgrad_plain(t["h1"], t["dh3"], t["h3"], t["a3"],
-                                        gw2, gb2, dtype=bf16),
-            lambda: torch.nn.grad.conv2d_weight(xg, wg.shape, dzg, padding=1,
-                                                groups=c),
-            nbytes(t["h1"], t["dh3"], t["h3"], t["a3"], w2, b2),
-            2 * live3 * (32 * 9 + 1), bf16),
-        "conv_dgrad": (
-            lambda: cc.conv_dgrad(t["dh3"], t["h3"], t["a3"], w2, (14, 14),
-                                  dtype=bf16, channels_last=True),
-            lambda: cc.conv_dgrad_plain(t["dh3"], t["h3"], t["a3"], w2,
-                                        (14, 14), dtype=bf16),
-            lambda: torch.nn.grad.conv2d_input(xg.shape, wg, dzg, padding=1,
-                                               groups=c),
-            nbytes(t["dh3"], t["h3"], t["a3"], w2, t["dh1"]),
-            2 * live3 * 32 * 9, bf16),
+        **conv_grads(f32, ""),
+        **conv_grads(bf16, "_tc"),
         "dense_fwd": (
             lambda: cd.dense_fwd(t["f3"], w1, b1, relu=True, wdtype=bf16,
                                  out_dtype=bf16),
@@ -834,6 +881,8 @@ def phase_fused_kernels() -> dict:
     err_key = {"conv_fwd": ("conv_fwd", f32),
                "conv_wgrad": ("conv_wgrad", f32, "dW"),
                "conv_dgrad": ("conv_dgrad", f32),
+               "conv_wgrad_tc": ("conv_wgrad", bf16, "dW"),
+               "conv_dgrad_tc": ("conv_dgrad", bf16),
                "dense_fwd": ("dense_fwd", f32),
                "dense_bwd": ("dense_bwd", f32, "dW"),
                "client_ce": ("ce", f32), "client_sq_norm": ("sq_norm", f32),
@@ -843,8 +892,9 @@ def phase_fused_kernels() -> dict:
         library_ms = time_ms(lambda _: lib(), None) if lib else None
         bound_ms, bound_by = bound(moved, flops, dt)
         lib_text = f"{library_ms:.4f} ms" if lib else "none"
-        print(f"[fused] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_text}, bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"[fused] {name} {'f32' if dt == f32 else 'bf16'}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_text}, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
         rows[name] = {
             "name": name, "route": "cuda",
             "source": FUSED_SOURCES[name.split("_")[0]],
@@ -852,32 +902,48 @@ def phase_fused_kernels() -> dict:
             "max_abs_err": errs[err_key[name]], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
-    # The other uses of the same kernels on the path, and K3's raw conv.
+    # The other uses of the same kernels on the path (the stem's forward and
+    # weight gradient), with their library calls and bounds, and K3's raw
+    # conv.
+    w1c, b1c = v["conv1.weight"], v["conv1.bias"]
+    xsg = cc._grouped(x).to(bf16).contiguous()
+    w1g = w1c.to(bf16).reshape(-1, *w1c.shape[2:])
+    dz1g = cc._grouped(cc._dense_dz(t["dh1"], t["h1"], t["a1"], 28, 28)
+                       ).to(bf16).contiguous()
+    live1 = int(((t["h1"] > 0) & (t["dh1"] != 0)).sum())
     extra = {
-        "stem fwd": (lambda: cc.conv_fwd(x, v["conv1.weight"], v["conv1.bias"],
-                                         dtype=bf16, channels_last=True),
-                     lambda: cc.conv_fwd_plain(
-                         x, v["conv1.weight"], v["conv1.bias"], dtype=bf16,
-                         channels_last=True)),
+        "stem fwd": (lambda: cc.conv_fwd(x, w1c, b1c, dtype=bf16,
+                                         channels_last=True),
+                     lambda: cc.conv_fwd_plain(x, w1c, b1c, dtype=bf16,
+                                               channels_last=True),
+                     lambda: F.conv2d(xsg, w1g, b1c.to(bf16).reshape(-1),
+                                      padding=1, groups=c),
+                     nbytes(x, w1c, b1c, t["h1"], t["a1"]),
+                     2 * c * 32 * 32 * 9 * 28 * 28),
         "stem wgrad": (lambda: cc.conv_wgrad(x, t["dh1"], t["h1"], t["a1"],
                                              gwc1, gbc1, dtype=bf16),
                        lambda: cc.conv_wgrad_plain(x, t["dh1"], t["h1"],
                                                    t["a1"], gwc1, gbc1,
-                                                   dtype=bf16)),
+                                                   dtype=bf16),
+                       lambda: torch.nn.grad.conv2d_weight(
+                           xsg, w1g.shape, dz1g, padding=1, groups=c),
+                       nbytes(x, t["dh1"], t["h1"], t["a1"], w1c, b1c),
+                       2 * live1 * (9 + 1)),
         "K3 raw stem": (lambda: cc.client_stem_conv(x3b, w4b),
-                        lambda: cc.client_stem_conv_plain(x3b, w4b)),
+                        lambda: cc.client_stem_conv_plain(x3b, w4b),
+                        lambda: F.conv2d(x3g, w4g, stride=2, padding=1,
+                                         groups=c),
+                        nbytes(x3b, w4b) + 2 * c * 32 * 14 * 14 * 128,
+                        2 * c * 32 * 14 * 14 * 128 * 128),
     }
-    for name, (kern, plain) in extra.items():
+    for name, (kern, plain, lib, moved, flops) in extra.items():
         ms, plain_ms = turns(kern, plain)
-        print(f"[fused] {name} bf16: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
-    k3_lib = time_ms(lambda _: F.conv2d(x3g, w4g, stride=2, padding=1,
-                                        groups=c), None)
-    k3_bound, k3_by = bound(nbytes(x3b, w4b) + 2 * c * 32 * 14 * 14 * 128,
-                            2 * c * 32 * 14 * 14 * 128 * 128, bf16)
-    print(f"[fused] K3 raw stem bf16: library (grouped F.conv2d) "
-          f"{k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}); stem wgrad "
-          f"live outputs {live1}, conv2 {live3}")
+        library_ms = time_ms(lambda _: lib(), None)
+        bound_ms, bound_by = bound(moved, flops, bf16)
+        print(f"[fused] {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+    print(f"[fused] live outputs of the weight gradients: stem {live1}")
     del engine, timed, t, cases, extra
     torch.cuda.empty_cache()
     return rows
@@ -900,6 +966,7 @@ def phase_fused_path() -> dict:
         raise AssertionError(f"fused_local_train differs from the mirror by "
                              f"{check['max_abs_err_vs_mirror']} > "
                              f"{FUSED_CHECK_ATOL}")
+    check_conv_kernels("run_check (f32)", check, f32_steps=4)
     t0 = time.perf_counter()
     bench = run_bench()
     print(f"[fused] run_bench in {time.perf_counter() - t0:.1f} s: "
@@ -922,7 +989,27 @@ def phase_fused_path() -> dict:
                         f"{FUSED_MIN_ACCURACY}")
     if failures:
         raise AssertionError("fused local training: " + "; ".join(failures))
-    return bench["launches"]
+    check_conv_kernels("run_bench (bf16)", bench, tc_steps=38)
+    # The gradient kernels' rows: the tensor-core ones from the bf16 path,
+    # the CUDA-core ones from the f32 checking path.
+    return {**bench["launches"], **bench["conv_kernel_launches"],
+            "conv_wgrad": check["conv_kernel_launches"]["conv_wgrad"],
+            "conv_dgrad": check["conv_kernel_launches"]["conv_dgrad"]}
+
+
+def check_conv_kernels(what: str, result: dict, f32_steps: int = 0,
+                       tc_steps: int = 0) -> None:
+    """Every launch of conv2's and the stem's gradient wrappers went
+    through the kernel of its dtype: two weight gradients and one input
+    gradient a step, on the CUDA-core kernels in f32, on the tensor-core
+    ones in bf16."""
+    want = {"conv_wgrad": 2 * f32_steps, "conv_dgrad": f32_steps,
+            "conv_wgrad_tc": 2 * tc_steps, "conv_dgrad_tc": tc_steps}
+    got = result["conv_kernel_launches"]
+    print(f"[fused] {what}: gradient kernel launches {got}")
+    if got != want:
+        raise AssertionError(f"{what}: gradient kernel launches {got}, "
+                             f"expected {want}")
 
 
 def probe_wrappers() -> dict:
@@ -1147,6 +1234,8 @@ def phase_dropout() -> tuple:
         raise AssertionError(f"fused_local_train with dropout differs from "
                              f"the mirror by {check['max_abs_err_vs_mirror']}"
                              f" > {FUSED_CHECK_ATOL}")
+    check_conv_kernels("run_check(use_dropout=True) (f32)", check,
+                       f32_steps=4)
     t0 = time.perf_counter()
     bench = run_bench(use_dropout=True)
     print(f"[dropout] run_bench(use_dropout=True) in "
@@ -1171,6 +1260,8 @@ def phase_dropout() -> tuple:
                         f"{DROPOUT_MIN_ACCURACY}")
     if failures:
         raise AssertionError("dropout path: " + "; ".join(failures))
+    check_conv_kernels("run_bench(use_dropout=True) (bf16)", bench,
+                       tc_steps=38)
     return row, bench["launches"]["dropout_apply"]
 
 

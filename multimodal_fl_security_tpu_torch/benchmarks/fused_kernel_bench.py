@@ -13,9 +13,11 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
   same data, ms per call after ``torch.cuda.synchronize()``: the kernel
   path, the mirror, and the engine's ``make_local_train_fn`` (shuffled,
   with dropout: what the JAX bench compares against). It also counts the
-  kernel path's launches per call, checks that two calls are bitwise
-  equal, measures the drift from the mirror, and evaluates the FedAvg of
-  the trained clients and of the engine trainer's on the bench's test set.
+  kernel path's launches per call (and those of each backward conv
+  kernel: CUDA-core for f32, tensor-core for bf16), checks that two calls
+  are bitwise equal, measures the drift from the mirror, and evaluates the
+  FedAvg of the trained clients and of the engine trainer's on the bench's
+  test set.
   With ``use_dropout`` the kernel path drops at rates 0.25 / 0.5 (Philox
   masks drawn in the kernel) and the mirror takes the plain generator's
   masks for the same seed; the bench adds the change that another seed
@@ -71,6 +73,10 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
     ``use_dropout`` both drop with the masks of ``seed`` (the mirror's from
     the plain generator)."""
     from multimodal_fl_security_tpu_torch.models import create_model, init_model
+    from multimodal_fl_security_tpu_torch.ops.client_conv import (
+        KERNEL_LAUNCHES,
+        reset_kernel_launches,
+    )
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         fused_local_train,
     )
@@ -93,9 +99,12 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
     masks = dropout_masks_plain(seed, clients, B, 2 * n // B,
                                 dtype=torch.float32, device=device) \
         if use_dropout else None
+    reset_kernel_launches()
     with full_f32():
         got = fused_local_train(params, images, labels, mask,
                                 use_dropout=use_dropout, seed=seed, **kw)
+        _sync(device)
+        launches = dict(KERNEL_LAUNCHES)
         want = mirror_local_train(params, images, labels, mask,
                                   dropout_masks=masks, **kw)
     _sync(device)
@@ -103,7 +112,8 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
     moved = float((want - params).abs().max())
     return {"mode": "check", "ok": bool(err <= CHECK_ATOL), "clients": clients,
             "use_dropout": use_dropout, "atol": CHECK_ATOL,
-            "max_abs_err_vs_mirror": err, "max_param_move": moved}
+            "max_abs_err_vs_mirror": err, "max_param_move": moved,
+            "conv_kernel_launches": launches}
 
 
 def _time_call(fn: Callable, device, iters: int) -> float:
@@ -133,6 +143,10 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     """The three trainers at the north-star width, with dropout if asked;
     see the module doc."""
     from multimodal_fl_security_tpu_torch.bench import build_engine
+    from multimodal_fl_security_tpu_torch.ops.client_conv import (
+        KERNEL_LAUNCHES,
+        reset_kernel_launches,
+    )
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         DROPOUT_STEP_KERNELS,
         LAUNCHES_PER_DROPOUT_STEP,
@@ -182,9 +196,11 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     # One counted call, then a second for the bitwise check.
     for fn in counted:
         fn.launches = 0
+    reset_kernel_launches()
     out = kernel()
     _sync(device)
     launches = {fn.__name__: fn.launches for fn in counted}
+    conv_kernels = dict(KERNEL_LAUNCHES)
     again = kernel()
     ref = mirror()
     _sync(device)
@@ -219,6 +235,7 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
         "mirror_ms": mirror_ms, "engine_ms": engine_ms,
         "ms_per_step": kernel_ms / steps,
         "launches": launches, "launches_total": sum(launches.values()),
+        "conv_kernel_launches": conv_kernels,
         "launches_expected": per_step * steps,
         "bitwise_repeat": bitwise, "finite": finite,
         "max_drift_vs_mirror": drift,
@@ -271,8 +288,9 @@ def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
         end = max(end, hi)
     span = spans[-1][1] - spans[0][0]
     by_name: Dict[str, float] = {}
-    for e in events:  # "(anonymous namespace)::k(...)" -> "k"
-        name = e.name.removeprefix("(anonymous namespace)::").split("(")[0]
+    for e in events:  # "void (anonymous namespace)::k<...>(...)" -> "k"
+        name = e.name.removeprefix("void ").removeprefix(
+            "(anonymous namespace)::").split("(")[0].split("<")[0]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))

@@ -24,24 +24,31 @@
 //    fold P^T of the four embedded copies. Sums run over the batch in a fixed
 //    order, with no atomics: two calls are bitwise equal.
 //  - conv_dgrad: the input gradient (conv2 only; the stem needs none).
+//  - conv2_wgrad_tc, stem_wgrad_tc, conv2_dgrad_tc: the same gradients for
+//    the compute dtype bf16, on the tensor cores (see their section below).
+//    conv_wgrad and conv_dgrad serve f32, the checking mode.
 //
-// What bounds them: at the north-star shapes (100 clients x 32 samples per
-// step) conv2's forward is 2*9*32*64*196 = 7.2 MFLOP per sample (the pooled
-// form evaluates each of the 14x14 positions once), 23 GFLOP per step; the
-// bytes it must move are ~80 MB. The kernels run f32 FMA on the CUDA cores
-// with both operands read from shared memory: two shared-memory words per
-// FMA, so shared-memory bandwidth (~7e12 words/s over the card) bounds them
-// at ~3 ms per conv2 pass, far above the HBM and tensor-core floors.
+// What bounds the CUDA-core kernels: at the north-star shapes (100 clients
+// x 32 samples per step) conv2's forward is 2*9*32*64*196 = 7.2 MFLOP per
+// sample (the pooled form evaluates each of the 14x14 positions once),
+// 23 GFLOP per step; the bytes it must move are ~80 MB. The kernels run f32
+// FMA on the CUDA cores with both operands read from shared memory: two
+// shared-memory words per FMA, so shared-memory bandwidth (~7e12 words/s
+// over the card) bounds them at ~3 ms per conv2 pass, far above the HBM and
+// tensor-core floors.
 // Design: one block per (client, sample) for the forward and the input
 // gradient, with the client's weights (conv2: 72 KB in f32) and the sample
 // (conv2: 25 KB) staged once in shared memory; one block per (client,
 // output channel) for the weight gradient, whose threads split the weights
-// and the batch and add their partial sums in a fixed order. Tensor cores
-// are left to a later version.
+// and the batch and add their partial sums in a fixed order.
+
+#include <cooperative_groups.h>
 
 #include <cmath>
 
 #include "client_common.cuh"
+
+namespace cg = cooperative_groups;
 
 // The geometry passed from Python (ctypes mirrors this layout).
 struct ConvGeom {
@@ -262,6 +269,782 @@ conv_dgrad_kernel(MftView dp, MftView h, MftView arg, MftView w, MftView dx,
   }
 }
 
+// ------------------------------------------------------------ tensor cores
+//
+// The weight and input gradients for the compute dtype bf16, on Hopper's
+// tensor cores: the port's counterpart of the MXU contractions the JAX kernel
+// runs for them (kdot3d's VJP, ops/fused_kernel.py:146-156, reached through
+// jax.grad at :433 and folded by consolidate_cv2, :262). Each is an implicit
+// GEMM on mma.sync.m16n8k16 (bf16 operands, f32 sums) fed by ldmatrix from
+// shared-memory tiles; no im2col buffer touches device memory.
+//  - conv2_wgrad_tc: dW[co, (kw, ci)] = sum over (n, oy, ox) of
+//    dZ[(oy, ox), co] * X[(oy + kh - 1, ox + kw - 1), ci]. One block per
+//    (kh, client); A = dZ^T (the dense routed gradient as [64, 196 -> 208]),
+//    B = the rows of the zero-bordered input tile [16 x 16, 32] shifted by
+//    (kh, kw), through ldmatrix.trans. The sums stay in registers over all
+//    the client's samples.
+//  - stem_wgrad_tc: the stem's rows (cin <= 8: under ldmatrix's 16 bytes)
+//    are materialised as a [256, 9 * cin -> NJP] patch in shared memory, 64
+//    pooled windows (256 dense rows, in window order) at a time. A cluster of
+//    kStemCluster blocks splits a client's samples; block 0 adds the partials
+//    through distributed shared memory, in rank order.
+//  - conv2_dgrad_tc: dX[(y, x), ci] = sum over (kh, kw, co) of
+//    dZ[(y + 1 - kh, x + 1 - kw), co] * W[co, ci, kh, kw]. One block per
+//    (kDgSamples samples, client) stages the client's weights once as
+//    [kh][kw][ci][co] bf16; A = the rows of the zero-bordered dZ tile
+//    [16 x 16, 64] shifted by (kh, kw).
+// dZ is built in shared memory from dp, h and the argmax as the CUDA-core
+// kernels build it, and rounded to bf16 (dp is bf16: exact). Every sum runs
+// in a fixed order (mma's, then warps', then ranks', in order), with no
+// atomics: two calls are bitwise equal.
+//
+// What bounds them: conv2's weight gradient is 23.1 GFLOP of dense mma over
+// 100 clients x 32 samples (0.023 ms at the bf16 peak), its input gradient
+// the same, against ~90 MB of operands (0.027 ms at 3.35 TB/s): bytes, by a
+// little. What the design leaves as the cost is the staging: every window
+// is routed, and every tile element converted from a strided view, by one
+// thread. So the main path's layouts (conv2's maps NCHW and its input NHWC,
+// the stem's maps NHWC) are read with 16-byte loads, each thread issues all
+// its loads of a sample (or of 64 windows) together, into registers, and
+// the next sample's loads are in flight while the tensor cores run. Any
+// other strides are read one element at a time.
+
+constexpr int kTcThreads = 256;  // 8 warps
+constexpr int kTcWarps = kTcThreads / 32;
+
+__device__ __forceinline__ uint32_t mft_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses of matrix i; `_t` transposes each matrix.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major): bf16 in, f32 sums.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// conv2's shape: the one the tensor-core conv2 kernels take.
+constexpr int kC2In = 32, kC2Out = 64, kC2Hw = 14;
+constexpr int kC2Pos = kC2Hw * kC2Hw;             // 196 output positions
+constexpr int kC2Pw = kC2Hw / 2;                  // 7
+constexpr int kC2Pooled = kC2Pw * kC2Pw;          // 49 windows
+constexpr int kC2Wins = kC2Pooled * kC2Out;       // 3136 (co, window) pairs
+constexpr int kC2Rows = (kC2Pos + 15) / 16 * 16;  // 208: whole k16 steps
+constexpr int kHaloW = kC2Hw + 2;                 // a one-pixel zero border
+constexpr int kHaloPix = kHaloW * kHaloW;         // 256
+// Row strides (bf16) padded by 16 bytes, so that ldmatrix's eight row
+// addresses fall on distinct bank groups.
+constexpr int kXRow = kC2In + 8;    // 80 B: [halo pixel][ci] input rows
+constexpr int kZRow = kC2Out + 8;   // 144 B: [pixel][co] dZ and weight rows
+constexpr int kZCol = kC2Rows + 8;  // 432 B: [co][m] dZ rows
+constexpr int kDgSamples = 4;       // samples a dgrad block stages weights for
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ bf16 mft_bf16_zero() {
+  return __float2bfloat16(0.f);
+}
+
+// Element e of 8 packed bf16, and of 8 packed bytes (e known at compile
+// time once the loops are unrolled).
+__device__ __forceinline__ float mft_bf16_at(const uint4& v, int e) {
+  const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+  return __bfloat162float(__ushort_as_bfloat16(
+      static_cast<unsigned short>(e & 1 ? w >> 16 : w & 0xffffu)));
+}
+
+__device__ __forceinline__ int mft_u8_at(const uint2& v, int e) {
+  return static_cast<int>(((e < 4 ? v.x : v.y) >> (8 * (e & 3))) & 0xffu);
+}
+
+__device__ __forceinline__ uint32_t mft_pack2(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+             << 16;
+}
+
+// A view's sample slab (client c, sample n) as a typed pointer.
+template <typename T>
+__device__ __forceinline__ const T* mft_slab(const MftView& v, int c, int n) {
+  return static_cast<const T*>(v.ptr) + c * v.st[0] + n * v.st[1];
+}
+
+// conv2's pooled gradient, pooled output (the relu mask) and argmax of one
+// sample, as one thread stages them. Window pair i = co * 49 + p (p = oi * 7
+// + oj) is routed to route(slot, co, p, q, g): g the gradient through the
+// relu, q its argmax's position. Dense: NCHW slabs (dp, h bf16; arg bytes;
+// 16-byte aligned), as conv2's forward and fc1's backward write them; the
+// thread loads pairs 8 (t + 256 k) .. + 7 with three vector loads each,
+// issued together. Otherwise: any strides and types, one element at a time
+// when routed.
+template <bool kDense>
+struct C2Windows;
+
+template <>
+struct C2Windows<true> {
+  static constexpr int kSlots = 16;
+  uint4 dp[2], h[2];
+  uint2 q[2];
+
+  __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
+                                       const MftView& varg, int c, int n) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i0 = 8 * (threadIdx.x + k * kTcThreads);
+      if (i0 < kC2Wins) {
+        dp[k] = *reinterpret_cast<const uint4*>(mft_slab<bf16>(vdp, c, n) + i0);
+        h[k] = *reinterpret_cast<const uint4*>(mft_slab<bf16>(vh, c, n) + i0);
+        q[k] = *reinterpret_cast<const uint2*>(
+            mft_slab<uint8_t>(varg, c, n) + i0);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ int pair(int slot) {
+    return 8 * (threadIdx.x + (slot / 8) * kTcThreads) + slot % 8;
+  }
+
+  template <typename Route>
+  __device__ __forceinline__ void route(Route&& put) const {
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const int i = pair(slot);
+      if (i < kC2Wins) {
+        const int k = slot / 8, e = slot % 8;
+        const float g =
+            mft_bf16_at(h[k], e) > 0.f ? mft_bf16_at(dp[k], e) : 0.f;
+        put(slot, i / kC2Pooled, i % kC2Pooled, mft_u8_at(q[k], e), g);
+      }
+    }
+  }
+};
+
+template <>
+struct C2Windows<false> {
+  static constexpr int kSlots = (kC2Wins + kTcThreads - 1) / kTcThreads;
+  const MftView *dp_, *h_, *arg_;
+  int c_, n_;
+
+  __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
+                                       const MftView& varg, int c, int n) {
+    dp_ = &vdp, h_ = &vh, arg_ = &varg, c_ = c, n_ = n;
+  }
+
+  static __device__ __forceinline__ int pair(int slot) {
+    return threadIdx.x + slot * kTcThreads;
+  }
+
+  template <typename Route>
+  __device__ __forceinline__ void route(Route&& put) const {
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const int i = pair(slot);
+      if (i < kC2Wins) {
+        const int co = i / kC2Pooled, p = i % kC2Pooled;
+        const int oi = p / kC2Pw, oj = p % kC2Pw;
+        const float hv = mft_ld(*h_, mft_off(*h_, c_, n_, co, oi, oj));
+        const float g =
+            hv > 0.f ? mft_ld(*dp_, mft_off(*dp_, c_, n_, co, oi, oj)) : 0.f;
+        put(slot, co, p,
+            static_cast<int>(mft_ld(*arg_, mft_off(*arg_, c_, n_, co, oi, oj))),
+            g);
+      }
+    }
+  }
+};
+
+// conv2's input of one sample into the zero-bordered tile xs [halo
+// pixel][ci] (bf16). Dense: an NHWC bf16 slab [14][14][32], 16-byte aligned,
+// as the stem's forward writes it; four 16-byte chunks a thread, loaded
+// together. Otherwise: any strides and types, one element at a time.
+template <bool kDense>
+struct C2Input;
+
+template <>
+struct C2Input<true> {
+  static constexpr int kChunks = kC2Pos * kC2In / 8;  // 784
+  uint4 v[(kChunks + kTcThreads - 1) / kTcThreads];
+
+  __device__ __forceinline__ void load(const MftView& x, int c, int n) {
+#pragma unroll
+    for (int k = 0; k < (kChunks + kTcThreads - 1) / kTcThreads; ++k) {
+      const int i = threadIdx.x + k * kTcThreads;
+      if (i < kChunks) {
+        v[k] = *reinterpret_cast<const uint4*>(mft_slab<bf16>(x, c, n) + 8 * i);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(bf16* xs) const {
+#pragma unroll
+    for (int k = 0; k < (kChunks + kTcThreads - 1) / kTcThreads; ++k) {
+      const int i = threadIdx.x + k * kTcThreads;
+      if (i < kChunks) {
+        const int p = i / 4;  // 4 chunks of 8 channels a pixel
+        *reinterpret_cast<uint4*>(
+            xs + ((p / kC2Hw + 1) * kHaloW + p % kC2Hw + 1) * kXRow +
+            8 * (i % 4)) = v[k];
+      }
+    }
+  }
+};
+
+template <>
+struct C2Input<false> {
+  const MftView* x_;
+  int c_, n_;
+
+  __device__ __forceinline__ void load(const MftView& x, int c, int n) {
+    x_ = &x, c_ = c, n_ = n;
+  }
+
+  __device__ __forceinline__ void store(bf16* xs) const {
+    for (int i = threadIdx.x; i < kC2Pos * kC2In; i += kTcThreads) {
+      const int ci = i % kC2In, p = i / kC2In;
+      const int iy = p / kC2Hw, ix = p % kC2Hw;
+      xs[((iy + 1) * kHaloW + ix + 1) * kXRow + ci] =
+          __float2bfloat16(mft_ld(*x_, mft_off(*x_, c_, n_, ci, iy, ix)));
+    }
+  }
+};
+
+// One block per (kh, client): dW[co, ci, kh, kw] for every co, kw and ci,
+// and db (written by the kh = 0 block). Warp w: output channels 16 (w % 4)
+// + [0, 16), columns (kw, ci) 48 (w / 4) + [0, 48) of the block's 96. While
+// the tensor cores run on sample n, sample n + 1's loads are in flight.
+template <bool kDenseX, bool kDenseZ>
+__global__ void __launch_bounds__(kTcThreads)
+conv2_wgrad_tc_kernel(MftView x, MftView dp, MftView h, MftView arg,
+                      MftView gw, MftView gb, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // xs: [halo pixel][ci], the input with its zero border; zs: [co][m],
+  // m = oy * 14 + ox, the routed gradient (rows 196.. stay 0).
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* zs = xs + kHaloPix * kXRow;
+  const int kh = blockIdx.x;
+  const int c = blockIdx.y;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
+  const int co0 = (warp & 3) * 16;
+  const int j0 = (warp >> 2) * 48;
+  {
+    uint32_t* z = reinterpret_cast<uint32_t*>(smem_raw);
+    const int words = (kHaloPix * kXRow + kC2Out * kZCol) / 2;
+    for (int i = t; i < words; i += kTcThreads) z[i] = 0u;  // borders, pads
+  }
+  // This lane's ldmatrix rows. A = dZ^T, [co][m]: channel co0 + 8 (li & 1)
+  // + lr, positions 8 (li >> 1) + 16 s. B (transposed: rows are positions
+  // m): the input pixel under m shifted by (kh, kw), channels ci, for each
+  // 16 columns u.
+  const uint32_t a_addr = mft_smem_addr(
+      zs + (co0 + (li & 1) * 8 + lr) * kZCol + (li >> 1) * 8);
+  const uint32_t xs_addr = mft_smem_addr(xs);
+  int b_col[3];  // kw * kXRow + ci
+#pragma unroll
+  for (int u = 0; u < 3; ++u) {
+    const int jj = j0 + 16 * u + (li >> 1) * 8;
+    b_col[u] = (jj / kC2In) * kXRow + jj % kC2In;
+  }
+  C2Input<kDenseX> xr;
+  C2Windows<kDenseZ> wr;
+  float acc[6][4] = {};
+  float db[C2Windows<kDenseZ>::kSlots] = {};  // each slot's sum over samples
+  xr.load(x, c, 0);
+  wr.load(dp, h, arg, c, 0);
+  for (int n = 0; n < batch; ++n) {
+    __syncthreads();  // the zero fill, or the previous sample's reads, done
+    xr.store(xs);
+    // Window (co, p): positions (di, dj) = (0, 0), (0, 1) are adjacent in
+    // m, and (1, 0), (1, 1) one row (14) on: two 4-byte stores.
+    wr.route([&](int slot, int co, int p, int q, float g) {
+      db[slot] += g;
+      uint32_t* at = reinterpret_cast<uint32_t*>(
+          zs + co * kZCol + 2 * (p / kC2Pw) * kC2Hw + 2 * (p % kC2Pw));
+      at[0] = mft_pack2(q == 0 ? g : 0.f, q == 1 ? g : 0.f);
+      at[kC2Hw / 2] = mft_pack2(q == 2 ? g : 0.f, q == 3 ? g : 0.f);
+    });
+    __syncthreads();
+    if (n + 1 < batch) {
+      xr.load(x, c, n + 1);
+      wr.load(dp, h, arg, c, n + 1);
+    }
+#pragma unroll
+    for (int s = 0; s < kC2Rows / 16; ++s) {
+      uint32_t a[4];
+      ldsm4(a, a_addr + s * 32);
+      const int m = s * 16 + (li & 1) * 8 + lr;
+      // Pad rows (m >= 196, dZ = 0) read row 0 of the zero border.
+      const int base =
+          m < kC2Pos ? ((m / kC2Hw + kh) * kHaloW + m % kC2Hw) * kXRow : 0;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        uint32_t b[4];
+        ldsm4_t(b, xs_addr + (base + b_col[u]) * 2);
+        mma16816(acc[2 * u], a, b[0], b[1]);
+        mma16816(acc[2 * u + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  const int gq = lane >> 2, tq = lane & 3;  // the accumulators' row, pair
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = co0 + gq + (e >> 1) * 8;
+      const int jj = j0 + 8 * u + 2 * tq + (e & 1);
+      mft_st(gw, mft_off(gw, c, co, jj % kC2In, kh, jj / kC2In),
+             mft_round(acc[u][e], kBF16));
+    }
+  }
+  if (kh != 0) return;
+  __syncthreads();  // the tiles are read: their memory takes the pair sums
+  float* red = reinterpret_cast<float*>(smem_raw);  // [co][p]
+#pragma unroll
+  for (int slot = 0; slot < C2Windows<kDenseZ>::kSlots; ++slot) {
+    const int i = C2Windows<kDenseZ>::pair(slot);
+    if (i < kC2Wins) red[i] = db[slot];
+  }
+  __syncthreads();
+  if (t < kC2Out) {
+    float s = 0.f;
+    for (int p = 0; p < kC2Pooled; ++p) s += red[t * kC2Pooled + p];
+    mft_st(gb, mft_off(gb, c, 0, t, 0, 0), mft_round(s, kBF16));
+  }
+}
+
+constexpr int kStemOut = 32;
+constexpr int kStemCluster = 2;              // blocks splitting a client
+constexpr int kStemWindows = 64;             // pooled windows staged at once
+constexpr int kStemRows = 4 * kStemWindows;  // 256 dense rows: 16 k16 steps
+constexpr int kSZRow = kStemOut + 8;         // 80 B
+
+template <int NJP>
+constexpr size_t stem_wgrad_smem() {
+  return sizeof(bf16) * kStemRows * (kSZRow + NJP + 8) +
+         sizeof(float) * kStemOut * NJP;
+}
+
+// The stem's pooled gradient, pooled output and argmax for 64 windows, as
+// one thread stages them and writes their four dense rows into zs [row][co]
+// (row 4 w + q: position q of window w; windows past `total` give 0).
+// Dense: NHWC slabs [.][.][32] (dp, h bf16; arg bytes; 16-byte aligned), as
+// conv2's input gradient and the stem's forward write them; thread t takes
+// window t / 4, channels 8 (t % 4) .. + 7: three vector loads, four 16-byte
+// stores. Otherwise: any strides and types, window slot k = (co, w) = (i %
+// 32, i / 32), i = t + 256 k, one element at a time when written.
+template <bool kDense>
+struct StemWindows;
+
+template <>
+struct StemWindows<true> {
+  uint4 dp, h;
+  uint2 q;
+  bool live;
+
+  __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
+                                       const MftView& varg, int c, int n0,
+                                       int per, int /*pw*/, int w0,
+                                       int total) {
+    const int wi = w0 + threadIdx.x / 4;
+    live = wi < total;
+    if (live) {
+      const int n = n0 + wi / per;
+      const long long o = (wi % per) * vdp.st[4] + 8 * (threadIdx.x % 4);
+      dp = *reinterpret_cast<const uint4*>(mft_slab<bf16>(vdp, c, n) + o);
+      h = *reinterpret_cast<const uint4*>(mft_slab<bf16>(vh, c, n) + o);
+      q = *reinterpret_cast<const uint2*>(mft_slab<uint8_t>(varg, c, n) + o);
+    }
+  }
+
+  __device__ __forceinline__ void store(bf16* zs) const {
+    uint32_t rows[4][4];
+#pragma unroll
+    for (int e2 = 0; e2 < 4; ++e2) {  // channel pairs
+      float g[2];
+      int qq[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int e = 2 * e2 + b;
+        g[b] = live && mft_bf16_at(h, e) > 0.f ? mft_bf16_at(dp, e) : 0.f;
+        qq[b] = mft_u8_at(q, e);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        rows[r][e2] =
+            mft_pack2(qq[0] == r ? g[0] : 0.f, qq[1] == r ? g[1] : 0.f);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      *reinterpret_cast<uint4*>(zs + (threadIdx.x / 4 * 4 + r) * kSZRow +
+                                8 * (threadIdx.x % 4)) =
+          make_uint4(rows[r][0], rows[r][1], rows[r][2], rows[r][3]);
+    }
+  }
+};
+
+template <>
+struct StemWindows<false> {
+  const MftView *dp_, *h_, *arg_;
+  int c_, n0_, per_, pw_, w0_, total_;
+
+  __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
+                                       const MftView& varg, int c, int n0,
+                                       int per, int pw, int w0, int total) {
+    dp_ = &vdp, h_ = &vh, arg_ = &varg;
+    c_ = c, n0_ = n0, per_ = per, pw_ = pw, w0_ = w0, total_ = total;
+  }
+
+  __device__ __forceinline__ void store(bf16* zs) const {
+    for (int i = threadIdx.x; i < kStemWindows * kStemOut; i += kTcThreads) {
+      const int co = i % kStemOut, wl = i / kStemOut;
+      float g = 0.f;
+      int q = 0;
+      if (w0_ + wl < total_) {
+        const int n = n0_ + (w0_ + wl) / per_, p = (w0_ + wl) % per_;
+        const int oi = p / pw_, oj = p % pw_;
+        q = static_cast<int>(mft_ld(*arg_, mft_off(*arg_, c_, n, co, oi, oj)));
+        g = mft_ld(*h_, mft_off(*h_, c_, n, co, oi, oj)) > 0.f
+                ? mft_ld(*dp_, mft_off(*dp_, c_, n, co, oi, oj))
+                : 0.f;
+      }
+      const bf16 v = __float2bfloat16(g);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        zs[(wl * 4 + r) * kSZRow + co] = q == r ? v : mft_bf16_zero();
+      }
+    }
+  }
+};
+
+// A cluster of kStemCluster blocks per client; block r sums samples
+// [r B / 2, (r + 1) B / 2); two blocks fit an SM. NJP: the 9 * cin columns
+// (kh, kw, ci) and one more, padded to whole 16s: column 9 cin of the patch
+// is 1, so db comes out of the tensor cores beside dW. The input is f32 (the
+// images). Thread t builds patch row t (position t % 4 of window t / 4) in
+// registers, one load a column, and stores it as whole 16-byte chunks. Warp
+// w takes k16 steps w and w + 8 of each 256 rows. The next rows' loads are
+// in flight while the tensor cores run.
+template <int NJP, bool kDenseZ>
+__global__ void __cluster_dims__(1, kStemCluster, 1)
+    __launch_bounds__(kTcThreads, 2)
+stem_wgrad_tc_kernel(MftView x, MftView dp, MftView h, MftView arg,
+                     MftView gw, MftView gb, ConvGeom g) {
+  static_assert(kStemRows == kTcThreads, "one patch row a thread");
+  constexpr int kPRow = NJP + 8;  // 16-byte padded patch rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* zs = reinterpret_cast<bf16*>(smem_raw);  // [row][co]
+  bf16* ps = zs + kStemRows * kSZRow;            // [row][(kh, kw, ci), 1]
+  float* red = reinterpret_cast<float*>(ps + kStemRows * kPRow);  // [co][NJP]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;
+  const int nj = 9 * g.cin;
+  // j / cin as (j * inv) >> 16: exact for j < 80, cin <= 8
+  const int inv = (65536 + g.cin - 1) / g.cin;
+  const int pw = g.ow / 2;
+  const int per = (g.oh / 2) * pw;
+  const int n0 = rank * g.batch / kStemCluster;
+  const int total = ((rank + 1) * g.batch / kStemCluster - n0) * per;
+  const uint32_t a_addr = mft_smem_addr(
+      zs + ((li >> 1) * 8 + lr) * kSZRow + (li & 1) * 8);
+  const uint32_t b_addr = mft_smem_addr(
+      ps + ((li & 1) * 8 + lr) * kPRow + (li >> 1) * 8);
+  // Patch row t's columns; 0 outside the image and past the last window.
+  float xv[NJP];
+  StemWindows<kDenseZ> wr;
+  auto load = [&](int w0) {
+    wr.load(dp, h, arg, c, n0, per, pw, w0, total);
+    const int wi = w0 + t / 4, q = t % 4;
+#pragma unroll
+    for (int j = 0; j < NJP; ++j) xv[j] = 0.f;
+    if (wi < total) {
+      const int n = n0 + wi / per, p = wi % per;
+      const int oy = 2 * (p / pw) + (q >> 1) - g.pad;
+      const int ox = 2 * (p % pw) + (q & 1) - g.pad;
+      const float* xs = mft_slab<float>(x, c, n);
+#pragma unroll
+      for (int j = 0; j < NJP; ++j) {
+        const int tap = (j * inv) >> 16;  // kh * 3 + kw
+        const int iy = oy + tap / 3, ix = ox + tap % 3;
+        if (j < nj && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w) {
+          xv[j] = xs[(j - tap * g.cin) * x.st[2] + iy * x.st[3] +
+                     ix * x.st[4]];
+        }
+      }
+    }
+  };
+  float acc[2][NJP / 8][4] = {};
+  if (total > 0) load(0);
+  for (int w0 = 0; w0 < total; w0 += kStemWindows) {
+    __syncthreads();  // the previous rows are read
+    wr.store(zs);
+#pragma unroll
+    for (int k = 0; k < NJP / 8; ++k) {
+      uint32_t v[4];
+#pragma unroll
+      for (int e2 = 0; e2 < 4; ++e2) {
+        const int j = 8 * k + 2 * e2;
+        v[e2] = mft_pack2(j == nj ? 1.f : xv[j], j + 1 == nj ? 1.f : xv[j + 1]);
+      }
+      *reinterpret_cast<uint4*>(ps + t * kPRow + 8 * k) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+    if (w0 + kStemWindows < total) load(w0 + kStemWindows);
+    for (int s = warp; s < kStemRows / 16; s += kTcWarps) {
+      uint32_t a0[4], a1[4];  // output channels 0-15, 16-31
+      ldsm4_t(a0, a_addr + s * 16 * kSZRow * 2);
+      ldsm4_t(a1, a_addr + s * 16 * kSZRow * 2 + 32);
+#pragma unroll
+      for (int ng = 0; ng < NJP / 16; ++ng) {
+        uint32_t b[4];
+        ldsm4_t(b, b_addr + (s * 16 * kPRow + ng * 16) * 2);
+        mma16816(acc[0][2 * ng], a0, b[0], b[1]);
+        mma16816(acc[0][2 * ng + 1], a0, b[2], b[3]);
+        mma16816(acc[1][2 * ng], a1, b[0], b[1]);
+        mma16816(acc[1][2 * ng + 1], a1, b[2], b[3]);
+      }
+    }
+  }
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int wv = 0; wv < kTcWarps; ++wv) {  // the warps' sums, in warp order
+    if (warp == wv) {
+#pragma unroll
+      for (int ct = 0; ct < 2; ++ct) {
+#pragma unroll
+        for (int nt = 0; nt < NJP / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& r = red[(ct * 16 + gq + (e >> 1) * 8) * NJP + nt * 8 +
+                           2 * tq + (e & 1)];
+            r = wv == 0 ? acc[ct][nt][e] : r + acc[ct][nt][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cluster.sync();  // every rank's partials are in its shared memory
+  if (rank == 0) {
+    for (int i = t; i < kStemOut * NJP; i += kTcThreads) {
+      const int co = i / NJP, j = i % NJP;
+      if (j > nj) continue;
+      float s = red[i];
+      for (int r = 1; r < kStemCluster; ++r) {
+        s += cluster.map_shared_rank(red, r)[i];
+      }
+      s = mft_round(s, kBF16);
+      if (j == nj) {
+        mft_st(gb, mft_off(gb, c, 0, co, 0, 0), s);
+      } else {
+        const int tap = j / g.cin;
+        mft_st(gw, mft_off(gw, c, co, j % g.cin, tap / 3, tap % 3), s);
+      }
+    }
+  }
+  cluster.sync();  // rank 0 has read the others' shared memory
+}
+
+// One block per (kDgSamples samples, client). Warp w: output rows
+// (positions) 16 w and 16 (w + 8) + [0, 16) of the 208, all 32 channels.
+// While the tensor cores run on sample n, sample n + 1's loads are in
+// flight.
+template <bool kDenseZ>
+__global__ void __launch_bounds__(kTcThreads)
+conv2_dgrad_tc_kernel(MftView dp, MftView h, MftView arg, MftView w,
+                      MftView dx, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // ws: [kh * 3 + kw][ci][co]; zs: [halo pixel][co], dZ with its zero border
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* zs = ws + 9 * kC2In * kZRow;
+  const int c = blockIdx.y;
+  const int n0 = blockIdx.x * kDgSamples;
+  const int n1 = min(batch, n0 + kDgSamples);
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;
+  C2Windows<kDenseZ> wr;
+  wr.load(dp, h, arg, c, n0);
+  for (int i = t; i < kHaloPix * kZRow / 2; i += kTcThreads) {
+    reinterpret_cast<uint32_t*>(zs)[i] = 0u;
+  }
+  for (int i = t; i < 9 * kC2In * kC2Out; i += kTcThreads) {
+    const int kw = i % 3;  // w's own order: (co, ci, kh, kw), kw fastest
+    int r = i / 3;
+    const int kh = r % 3;
+    r /= 3;
+    const int ci = r % kC2In;
+    const int co = r / kC2In;
+    ws[((kh * 3 + kw) * kC2In + ci) * kZRow + co] =
+        __float2bfloat16(mft_ld(w, mft_off(w, c, co, ci, kh, kw)));
+  }
+  // This lane's ldmatrix rows (neither transposed). A: the dZ pixel under
+  // output row p shifted by (kh, kw), channels 8 (li >> 1) + 16 kc; B: ci
+  // rows 8 (li >> 1) + lr + 16 ng, channels 8 (li & 1) + 16 kc.
+  const uint32_t zs_addr = mft_smem_addr(zs) + (li >> 1) * 8 * 2;
+  const uint32_t b_addr = mft_smem_addr(
+      ws + ((li >> 1) * 8 + lr) * kZRow + (li & 1) * 8);
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int n = n0; n < n1; ++n) {
+    __syncthreads();  // weights and border staged, or the last sample read
+    wr.route([&](int, int co, int p, int q, float g) {
+      const bf16 v = __float2bfloat16(g), z = mft_bf16_zero();
+      bf16* at = zs + ((2 * (p / kC2Pw) + 1) * kHaloW + 2 * (p % kC2Pw) + 1) *
+                          kZRow + co;
+      at[0] = q == 0 ? v : z;
+      at[kZRow] = q == 1 ? v : z;
+      at[kHaloW * kZRow] = q == 2 ? v : z;
+      at[(kHaloW + 1) * kZRow] = q == 3 ? v : z;
+    });
+    __syncthreads();
+    if (n + 1 < n1) wr.load(dp, h, arg, c, n + 1);
+    for (int mt = warp; mt < kC2Rows / 16; mt += kTcWarps) {
+      float acc[4][4] = {};
+      const int p = mt * 16 + (li & 1) * 8 + lr;
+      // dZ pixel of tap (kh, kw): (y + 2 - kh, x + 2 - kw) in the bordered
+      // tile; pad rows (p >= 196) read pixel 0 of the zero border.
+      const int pix0 =
+          p < kC2Pos ? (p / kC2Hw + 2) * kHaloW + p % kC2Hw + 2 : 0;
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          const int pix = p < kC2Pos ? pix0 - kh * kHaloW - kw : 0;
+          const uint32_t arow = zs_addr + pix * kZRow * 2;
+          const uint32_t brow = b_addr + (kh * 3 + kw) * kC2In * kZRow * 2;
+#pragma unroll
+          for (int kc = 0; kc < kC2Out / 16; ++kc) {
+            uint32_t a[4];
+            ldsm4(a, arow + kc * 32);
+#pragma unroll
+            for (int ng = 0; ng < 2; ++ng) {
+              uint32_t b[4];
+              ldsm4(b, brow + ng * 16 * kZRow * 2 + kc * 32);
+              mma16816(acc[2 * ng], a, b[0], b[1]);
+              mma16816(acc[2 * ng + 1], a, b[2], b[3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = mt * 16 + gq + (e >> 1) * 8;
+          if (row < kC2Pos) {
+            mft_st(dx, mft_off(dx, c, n, nt * 8 + 2 * tq + (e & 1),
+                               row / kC2Hw, row % kC2Hw),
+                   acc[nt][e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// What the tensor-core kernels take: bf16, a pooled 3 x 3 SAME convolution
+// at stride 1 with conv2's shape or, given its f32 input x (weight gradient
+// only), a stem's (1 <= cin <= 8 -> 32: 9 cin columns and the ones column
+// in at most 80), and dp in bf16.
+enum TcKind : int { kTcNone = 0, kTcConv2 = 1, kTcStem = 2 };
+
+TcKind tc_kind(const ConvGeom& g, const MftView& dp, const MftView* x) {
+  if (g.cdt != kBF16 || g.k != 3 || g.stride != 1 || g.pad != 1 || !g.pool ||
+      g.oh != g.h || g.ow != g.w || g.h % 2 || g.w % 2 || dp.dtype != kBF16) {
+    return kTcNone;
+  }
+  if (g.cin == kC2In && g.cout == kC2Out && g.h == kC2Hw && g.w == kC2Hw) {
+    return kTcConv2;
+  }
+  if (x && x->dtype == kF32 && g.cout == kStemOut && g.cin >= 1 &&
+      9 * g.cin < 80) {
+    return kTcStem;
+  }
+  return kTcNone;
+}
+
+// Whether view v's sample slabs are dense with (channel, row, column)
+// strides (s2, s3, s4), of `dtype`, and 16-byte aligned (sample and client
+// strides too): the layouts the kernels read with vector loads.
+bool dense_slab(const MftView& v, int dtype, long long s2, long long s3,
+                long long s4) {
+  const long long per16 = dtype == kU8 ? 16 : 8;  // elements in 16 bytes
+  return v.dtype == dtype && v.st[2] == s2 && v.st[3] == s3 &&
+         v.st[4] == s4 && v.st[0] % per16 == 0 && v.st[1] % per16 == 0 &&
+         reinterpret_cast<uintptr_t>(v.ptr) % 16 == 0;
+}
+
+// dp, h and the argmax as dense NCHW (conv2) or NHWC (stem) slabs.
+bool dense_windows(const MftView& dp, const MftView& h, const MftView& arg,
+                   const ConvGeom& g, bool nhwc) {
+  const long long pw = g.ow / 2, ph = g.oh / 2;
+  const long long s2 = nhwc ? 1 : ph * pw, s3 = nhwc ? pw * g.cout : pw,
+                  s4 = nhwc ? g.cout : 1;
+  return dense_slab(dp, kBF16, s2, s3, s4) &&
+         dense_slab(h, kBF16, s2, s3, s4) && dense_slab(arg, kU8, s2, s3, s4);
+}
+
+template <typename Kernel, typename... Views>
+cudaError_t launch_tc(Kernel kernel, dim3 grid, size_t smem,
+                      cudaStream_t stream, int batch, const Views*... v) {
+  cudaError_t err = mft_smem_optin(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTcThreads, smem, stream>>>(*v..., batch);
+  return cudaGetLastError();
+}
+
+template <int NJP, bool kDenseZ>
+cudaError_t launch_stem(const MftView* x, const MftView* dp, const MftView* h,
+                        const MftView* arg, const MftView* gw,
+                        const MftView* gb, const MftConvArgs* a,
+                        cudaStream_t stream) {
+  constexpr size_t smem = stem_wgrad_smem<NJP>();
+  const auto kernel = stem_wgrad_tc_kernel<NJP, kDenseZ>;
+  cudaError_t err = mft_smem_optin(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a->clients, kStemCluster), kTcThreads, smem, stream>>>(
+      *x, *dp, *h, *arg, *gw, *gb, a->g);
+  return cudaGetLastError();
+}
+
+template <bool kDenseZ>
+cudaError_t launch_stem(const MftView* x, const MftView* dp, const MftView* h,
+                        const MftView* arg, const MftView* gw,
+                        const MftView* gb, const MftConvArgs* a,
+                        cudaStream_t st) {
+  // The columns and the ones: 16 for the path's one channel, else 80 (up
+  // to 8 channels; two sizes keep the build short).
+  return a->g.cin == 1
+             ? launch_stem<16, kDenseZ>(x, dp, h, arg, gw, gb, a, st)
+             : launch_stem<80, kDenseZ>(x, dp, h, arg, gw, gb, a, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -342,6 +1125,61 @@ int mft_conv_dgrad(const MftView* dp, const MftView* h, const MftView* arg,
                       static_cast<cudaStream_t>(stream)>>>(*dp, *h, *arg, *w,
                                                            *dx, g);
   return cudaGetLastError();
+}
+
+// The tensor-core kernels for the compute dtype bf16: the same arguments as
+// mft_conv_wgrad and mft_conv_dgrad. What they do not take (mft_conv_tc_kind
+// 0, with x null for the input gradient) is refused, never handed to another
+// kernel.
+int mft_conv_tc_kind(const MftConvArgs* a, const MftView* dp,
+                     const MftView* x) {
+  return tc_kind(a->g, *dp, x);
+}
+
+int mft_conv_wgrad_tc(const MftView* x, const MftView* dp, const MftView* h,
+                      const MftView* arg, const MftView* gw,
+                      const MftView* gb, const MftConvArgs* a, int device,
+                      void* stream) {
+  const ConvGeom& g = a->g;
+  const TcKind kind = tc_kind(g, *dp, x);
+  if (a->clients <= 0 || g.batch <= 0 || kind == kTcNone) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == kTcStem) {
+    return dense_windows(*dp, *h, *arg, g, true)
+               ? launch_stem<true>(x, dp, h, arg, gw, gb, a, st)
+               : launch_stem<false>(x, dp, h, arg, gw, gb, a, st);
+  }
+  const bool dx = dense_slab(*x, kBF16, 1, kC2Hw * kC2In, kC2In);
+  const bool dz = dense_windows(*dp, *h, *arg, g, false);
+  const size_t smem = sizeof(bf16) * (kHaloPix * kXRow + kC2Out * kZCol);
+  const auto kernel = dx ? (dz ? conv2_wgrad_tc_kernel<true, true>
+                                : conv2_wgrad_tc_kernel<true, false>)
+                          : (dz ? conv2_wgrad_tc_kernel<false, true>
+                                : conv2_wgrad_tc_kernel<false, false>);
+  return launch_tc(kernel, dim3(3, a->clients), smem, st, g.batch, x, dp, h,
+                   arg, gw, gb);
+}
+
+int mft_conv_dgrad_tc(const MftView* dp, const MftView* h, const MftView* arg,
+                      const MftView* w, const MftView* dx,
+                      const MftConvArgs* a, int device, void* stream) {
+  const ConvGeom& g = a->g;
+  if (a->clients <= 0 || g.batch <= 0 || tc_kind(g, *dp, nullptr) != kTcConv2) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(bf16) * (9 * kC2In * kZRow + kHaloPix * kZRow);
+  const dim3 grid((g.batch + kDgSamples - 1) / kDgSamples, a->clients);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto kernel = dense_windows(*dp, *h, *arg, g, false)
+                          ? conv2_dgrad_tc_kernel<true>
+                          : conv2_dgrad_tc_kernel<false>;
+  return launch_tc(kernel, grid, smem, st, g.batch, dp, h, arg, w, dx);
 }
 
 const char* mft_client_conv_error_string(int err) {

@@ -72,10 +72,13 @@ def _library() -> ctypes.CDLL:
     p = ctypes.POINTER(MftView)
     args = ctypes.POINTER(ConvArgs)
     for name, n_views in (("mft_conv_fwd", 5), ("mft_conv_wgrad", 6),
-                          ("mft_conv_dgrad", 5)):
+                          ("mft_conv_dgrad", 5), ("mft_conv_wgrad_tc", 6),
+                          ("mft_conv_dgrad_tc", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_views + [args, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.mft_conv_tc_kind.argtypes = [args, p, p]
+    lib.mft_conv_tc_kind.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -192,6 +195,51 @@ conv_fwd.launches = 0
 
 # --------------------------------------------------------------- backward
 
+#: launches of each backward kernel of ``csrc/client_conv.cu``, by name. In
+#: f32 (the checking mode) the wrappers launch the CUDA-core kernels
+#: ``conv_wgrad`` and ``conv_dgrad``; in bf16 the tensor-core kernels
+#: ``conv_wgrad_tc`` (conv2's and the stem's instantiations) and
+#: ``conv_dgrad_tc``. Each wrapper's ``.launches`` counts both of its own.
+KERNEL_LAUNCHES = dict.fromkeys(
+    ("conv_wgrad", "conv_wgrad_tc", "conv_dgrad", "conv_dgrad_tc"), 0)
+#: mft_conv_tc_kind's answer for a call no tensor-core kernel takes
+#: (csrc/client_conv.cu's TcKind)
+_TC_NONE = 0
+
+
+def reset_kernel_launches() -> None:
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
+                x: Optional[MftView], wrapper: str) -> str:
+    """The kernel that serves ``a``'s compute dtype: the CUDA-core one for
+    f32; for bf16 the tensor-core one, which takes a pooled 3x3 SAME
+    stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14) or,
+    for the weight gradient only (``x`` the input's view, None for the input
+    gradient), a stem's (1-8 -> 32 channels, its input in f32), and ``dp``
+    (its view) in bf16. Any other bf16 call raises: it never drops to the
+    CUDA-core kernel. The kernels read the main path's layouts (conv2's
+    maps NCHW and its input NHWC, the stem's maps NHWC) with vector loads,
+    any other strides one element at a time."""
+    if a.g.cdt == DTYPE_CODES[torch.float32]:
+        return wrapper
+    kind = lib.mft_conv_tc_kind(ctypes.byref(a), ctypes.byref(dp),
+                                None if x is None else ctypes.byref(x))
+    if kind == _TC_NONE:
+        g = a.g
+        x_code = None if x is None else x.dtype
+        raise ValueError(
+            f"{wrapper} in bf16 runs on the tensor-core kernel, which takes "
+            f"a pooled 3x3 SAME stride-1 conv2 (32 -> 64 at 14x14) or stem "
+            f"(1-8 -> 32, input in f32, weight gradient only) with dp in "
+            f"bf16; got {g.cin} -> {g.cout} at {g.h}x{g.w}, k {g.k}, stride "
+            f"{g.stride}, pad {g.pad}, dtype codes: dp {dp.dtype}, x "
+            f"{x_code}")
+    return wrapper + "_tc"
+
+
 def _dense_dz(dp, h, arg, oh, ow):
     """The conv output's gradient [C, B, C_out, OH, OW]: the pooled
     gradient through the relu (h > 0), placed at each window's argmax."""
@@ -226,7 +274,9 @@ def conv_wgrad(x: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
     the gradient buffer). ``x`` is the layer's input, ``dp`` the pooled
     output's gradient, ``h`` the pooled output and ``arg`` its argmax.
     For the stem this is the fold of w4's four copies into the 3x3 kernel.
-    ``conv_wgrad.launches`` counts kernel launches."""
+    f32 runs the CUDA-core kernel, bf16 the tensor-core one (see
+    :func:`_kernel_for`); ``conv_wgrad.launches`` counts the launches of
+    both, :data:`KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_wgrad_plain(x, dp, h, arg, gw, gb, stride=stride, pad=pad,
                                 dtype=dtype)
@@ -239,9 +289,12 @@ def conv_wgrad(x: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
     views = [view(x, _IMAGE_AXES), view(dp, _IMAGE_AXES),
              view(h, _IMAGE_AXES), view(arg, _IMAGE_AXES),
              view(gw, _WEIGHT_AXES), view(gb, _BIAS_AXES)]
-    err = lib.mft_conv_wgrad(*[ctypes.byref(v) for v in views],
-                             ctypes.byref(a), device.index, stream_of(x))
-    check(lib, err, "conv_wgrad", "client_conv")
+    kernel = _kernel_for(lib, a, views[1], views[0], "conv_wgrad")
+    err = getattr(lib, f"mft_{kernel}")(*[ctypes.byref(v) for v in views],
+                                        ctypes.byref(a), device.index,
+                                        stream_of(x))
+    check(lib, err, kernel, "client_conv")
+    KERNEL_LAUNCHES[kernel] += 1
     conv_wgrad.launches += 1
 
 
@@ -268,8 +321,9 @@ def conv_dgrad(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
                dtype: torch.dtype = torch.float32,
                channels_last: bool = False) -> torch.Tensor:
     """Input gradient [C, B, C_in, H, W] (in ``dtype``) of a pooled
-    stride-1 conv layer with weights ``w``. ``conv_dgrad.launches`` counts
-    kernel launches."""
+    stride-1 conv layer with weights ``w``. f32 runs the CUDA-core kernel,
+    bf16 the tensor-core one (conv2's shape only); ``conv_dgrad.launches``
+    counts the launches of both, :data:`KERNEL_LAUNCHES` each one's."""
     if dp.device.type == "cpu":
         return conv_dgrad_plain(dp, h, arg, w, in_hw, pad=pad, dtype=dtype,
                                 channels_last=channels_last)
@@ -282,9 +336,12 @@ def conv_dgrad(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
     views = [view(dp, _IMAGE_AXES), view(h, _IMAGE_AXES),
              view(arg, _IMAGE_AXES), view(w, _WEIGHT_AXES),
              view(dx, _IMAGE_AXES)]
-    err = lib.mft_conv_dgrad(*[ctypes.byref(v) for v in views],
-                             ctypes.byref(a), device.index, stream_of(dp))
-    check(lib, err, "conv_dgrad", "client_conv")
+    kernel = _kernel_for(lib, a, views[0], None, "conv_dgrad")
+    err = getattr(lib, f"mft_{kernel}")(*[ctypes.byref(v) for v in views],
+                                        ctypes.byref(a), device.index,
+                                        stream_of(dp))
+    check(lib, err, kernel, "client_conv")
+    KERNEL_LAUNCHES[kernel] += 1
     conv_dgrad.launches += 1
     return dx
 

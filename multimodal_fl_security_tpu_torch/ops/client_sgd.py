@@ -149,6 +149,40 @@ def client_sgd_update_plain(params, mom, grad, partial, *, lr, momentum,
     params.sub_(lr * mom)
 
 
+def kernel_clip_scale(partial: torch.Tensor, clip_norm: float) -> torch.Tensor:
+    """:func:`clip_scale` in the kernel's order of operations: the partials
+    summed one after another, then one correctly rounded division
+    (``clip_scale`` sums in PyTorch's order and multiplies by a
+    reciprocal, so the two may differ in their last bits)."""
+    if not clip_norm > 0:
+        return clip_scale(partial, clip_norm)
+    n2 = partial[:, 0].clone()
+    for i in range(1, partial.shape[1]):
+        n2 = n2 + partial[:, i]
+    return torch.full_like(n2, clip_norm) / torch.clamp_min(n2.sqrt(),
+                                                            clip_norm)
+
+
+def ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of f32 at |t|."""
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def sgd_update_bounds(grad, mom_ref, params_ref, partial, *, lr, clip_norm):
+    """How far :func:`client_sgd_update`'s m and p may lie from those of
+    its plain version (``mom_ref``, ``params_ref``), element by element.
+    Both round each operation alone and differ only in the clip scale s
+    (:func:`kernel_clip_scale`): g*s moves by |g| |s_k - s| plus one
+    rounding of g*s, m by that plus one rounding of m, p by lr times m's
+    bound plus one rounding of lr*m and one of p. Returns the bounds on
+    |m - m_ref| and |p - p_ref|."""
+    s_ref = clip_scale(partial, clip_norm).unsqueeze(1)
+    ds = (kernel_clip_scale(partial, clip_norm).unsqueeze(1) - s_ref).abs()
+    bound_m = grad.abs() * ds + ulp(grad * s_ref) + ulp(mom_ref)
+    return bound_m, lr * bound_m + ulp(lr * mom_ref) + ulp(params_ref)
+
+
 def client_sgd_update(params: torch.Tensor, mom: torch.Tensor,
                       grad: torch.Tensor, partial: torch.Tensor, *,
                       lr: float, momentum: float, clip_norm: float) -> None:

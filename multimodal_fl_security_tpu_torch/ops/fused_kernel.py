@@ -144,8 +144,8 @@ def fused_local_train(params: torch.Tensor, images: torch.Tensor,
                       dropout_rates=(0.25, 0.5),
                       seed: int = 0) -> torch.Tensor:
     """Every client's local SGD from the global ``params`` [D] (f32, the
-    port's ``FlatLayout`` for SimpleCNN): ``images`` [C, N, cin, 28, 28],
-    ``labels`` and ``bmask`` [C, N] (0 = padded row), N a multiple of 32.
+    port's ``FlatLayout`` for SimpleCNN): ``images`` [C, N, cin, 28, 28]
+    (f32: the stem's bf16 weight gradient takes no other), ``labels`` and ``bmask`` [C, N] (0 = padded row), N a multiple of 32.
     Step s reads rows ``(s % steps)*32 .. +32``; ``local_epochs`` passes.
     Compute runs in ``compute_dtype`` (fc2 in f32); parameters and momentum
     stay f32. ``use_dropout`` drops fc1's input and output at

@@ -23,6 +23,7 @@ import torch
 from multimodal_fl_security_tpu_torch.models import create_model
 from multimodal_fl_security_tpu_torch.models.from_jax import params_from_jax
 from multimodal_fl_security_tpu_torch.ops.client_conv import (
+    KERNEL_LAUNCHES,
     client_stem_conv,
     client_stem_conv_plain,
     conv_dgrad,
@@ -46,6 +47,10 @@ from multimodal_fl_security_tpu_torch.ops.client_sgd import (
     client_sgd_update_plain,
     client_sq_norm,
     client_sq_norm_plain,
+    clip_scale,
+    kernel_clip_scale,
+    sgd_update_bounds,
+    ulp,
 )
 from multimodal_fl_security_tpu_torch.ops.fused_kernel import step_grads
 
@@ -410,6 +415,130 @@ def test_conv_dgrad_kernel_matches_plain(cuda, c, b, dtype):
     close(got, want, dtype, scale=float(want.float().abs().max()))
 
 
+def integer_case(gen, layer, c, b, cin, main_layout, drop):
+    """Small-integer operands of a pooled layer's gradients: every product
+    and sum is exact in bf16 operands and f32 sums. ``main_layout``: the
+    main path's strides (conv2's input NHWC and its maps NCHW, the stem's
+    input NCHW and its maps NHWC), which the tensor-core kernels read with
+    vector loads; else the other ones, read element by element. ``drop``
+    zeroes a quarter of the pooled gradient, as dropout does."""
+    hw, cout = (28, 32) if layer == "stem" else (14, 64)
+    cin = cin if layer == "stem" else 32
+    x = torch.randint(-3, 4, (c, b, hw, hw, cin), generator=gen,
+                      device="cuda").float().permute(0, 1, 4, 2, 3)
+    if (layer == "stem") == main_layout:
+        x = x.contiguous()  # NCHW
+    x = x if layer == "stem" else x.to(torch.bfloat16)
+    w = torch.randint(-2, 3, (c, cout, cin, 3, 3), generator=gen,
+                      device="cuda").float()
+    bias = torch.randint(-2, 3, (c, cout), generator=gen,
+                         device="cuda").float()
+    maps_nhwc = (layer == "stem") == main_layout
+    h, arg = conv_fwd_plain(x, w, bias, dtype=torch.bfloat16,
+                            channels_last=maps_nhwc)
+    g = torch.randint(-4, 5, h.shape, generator=gen, device="cuda")
+    if drop:
+        g = g * (torch.rand(h.shape, generator=gen, device="cuda") >= 0.25)
+    dp = torch.empty_like(h).copy_(g)  # h's strides
+    return x, w, bias, h, arg, dp
+
+
+TC_CASES = [("stem", 1), ("stem", 8), ("conv2", 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("main_layout", [True, False])
+@pytest.mark.parametrize("layer,cin", TC_CASES)
+def test_tc_kernels_exact_on_integers(cuda, layer, cin, main_layout, drop):
+    """bf16 runs the tensor-core kernels: on exact operands they equal the
+    plain versions bitwise, whatever order either sums in, at the ragged
+    C=3, B=5, in both layouts, with and without dropped gradients. The
+    plain versions run without cuDNN here: its f32 weight gradient at
+    conv2's grouped shape is not exact on integers (one bf16 ulp off a
+    338, measured on the card), PyTorch's own im2col and GEMM are."""
+    bf16 = torch.bfloat16
+    x, w, bias, h, arg, dp = integer_case(cuda, layer, 3, 5, cin,
+                                          main_layout, drop)
+    got = [torch.full_like(w, float("nan")), torch.full_like(bias, 0.5)]
+    want = [torch.empty_like(w), torch.empty_like(bias)]
+    conv_wgrad(x, dp, h, arg, *got, dtype=bf16)
+    with torch.backends.cudnn.flags(enabled=False):
+        conv_wgrad_plain(x, dp, h, arg, *want, dtype=bf16)
+        dx_want = conv_dgrad_plain(dp, h, arg, w, (14, 14), dtype=bf16) \
+            if layer == "conv2" else None
+    if layer == "conv2":
+        dx = conv_dgrad(dp, h, arg, w, (14, 14), dtype=bf16,
+                        channels_last=True)
+    torch.cuda.synchronize()
+    assert float(want[0].abs().max()) > 100  # sums large enough to test
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if layer == "conv2":
+        assert torch.equal(dx, dx_want)
+
+
+@pytest.mark.cuda
+def test_kernel_choice_follows_the_dtype(cuda):
+    """f32 launches the CUDA-core kernels, bf16 the tensor-core ones; each
+    kernel has its own count, the wrappers count both."""
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for layer, cin in TC_CASES:
+            x, w, bias, h, arg, dp = pooled_case(cuda, layer, 3, 5, cin,
+                                                 dtype)
+            before = dict(KERNEL_LAUNCHES)
+            wgrad_before = conv_wgrad.launches
+            conv_wgrad(x, dp, h, arg, torch.empty_like(w),
+                       torch.empty_like(bias), dtype=dtype)
+            assert conv_wgrad.launches == wgrad_before + 1
+            if layer == "conv2":
+                dgrad_before = conv_dgrad.launches
+                conv_dgrad(dp, h, arg, w, (14, 14), dtype=dtype)
+                assert conv_dgrad.launches == dgrad_before + 1
+            counts[dtype, layer, cin] = {
+                k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+    torch.cuda.synchronize()
+    for (dtype, layer, _), got in counts.items():
+        tc = dtype == torch.bfloat16
+        dgrad = int(layer == "conv2")
+        assert got == {"conv_wgrad": int(not tc), "conv_wgrad_tc": int(tc),
+                       "conv_dgrad": dgrad * int(not tc),
+                       "conv_dgrad_tc": dgrad * int(tc)}
+
+
+@pytest.mark.cuda
+def test_tc_kernels_refuse_other_bf16_calls(cuda):
+    """A bf16 call the tensor-core kernels do not take raises, and nothing
+    is launched: it never drops to the CUDA-core kernel."""
+    bf16 = torch.bfloat16
+    x, w, bias, h, arg, dp = pooled_case(cuda, "conv2", 3, 5, 32, bf16)
+    sx, sw, sb, sh, sarg, sdp = pooled_case(cuda, "stem", 3, 5, 1, bf16)
+    gw, gb = torch.empty_like(w), torch.empty_like(bias)
+    calls = {
+        "conv2 at 16 input channels": lambda: conv_wgrad(
+            x[:, :, :16], dp, h, arg, gw[:, :, :16], gb, dtype=bf16),
+        "stride 2": lambda: conv_wgrad(x, dp, h, arg, gw, gb, stride=2,
+                                       dtype=bf16),
+        "a stem of 64 outputs": lambda: conv_wgrad(
+            sx, torch.cat([sdp, sdp], 2), torch.cat([sh, sh], 2),
+            torch.cat([sarg, sarg], 2), torch.cat([sw, sw], 1),
+            torch.cat([sb, sb], 1), dtype=bf16),
+        "f32 pooled gradient": lambda: conv_wgrad(x, dp.float(), h, arg, gw,
+                                                  gb, dtype=bf16),
+        "a stem of bf16 input": lambda: conv_wgrad(
+            sx.to(bf16), sdp, sh, sarg, sw, sb, dtype=bf16),
+        "the stem's input gradient": lambda: conv_dgrad(
+            sdp, sh, sarg, sw, (28, 28), dtype=bf16),
+    }
+    before = (dict(KERNEL_LAUNCHES), conv_wgrad.launches,
+              conv_dgrad.launches)
+    for what, call in calls.items():
+        with pytest.raises(ValueError, match="tensor-core"):
+            call()
+    assert (dict(KERNEL_LAUNCHES), conv_wgrad.launches,
+            conv_dgrad.launches) == before
+
+
 DENSE = [(3, 7, 100, 37), (100, 32, 3136, 128), (100, 32, 128, 10)]
 
 
@@ -472,11 +601,33 @@ def test_sgd_kernels_match_plain(cuda, c, d, clip_norm):
     client_sgd_update_plain(p_ref, m_ref, g, partial, lr=0.05, momentum=0.9,
                             clip_norm=clip_norm)
     torch.cuda.synchronize()
-    # Same formula, each operation rounded alone; the two sum the partials
-    # in other orders, so the clip scale may differ in its last bit: up to
-    # |g| * 2^-23 apart where g*s and mu*m cancel.
+    # Same formula, each operation rounded alone. The two differ only in the
+    # clip scale s, which they take in other orders (29 of the 100 scales
+    # differ in their last bits on the card at [100, 421,642]): each element
+    # is held to the bound that follows from its operands
+    # (sgd_update_bounds). Where p - lr*m nearly cancels (p
+    # ~1e-3 at m ~0.26) a one-ulp change of m moves p by lr * ulp(m) ~1.5e-9,
+    # over any flat 1e-9; where g*s and mu*m cancel, m moves by ulp(g*s),
+    # many ulps of m: a bound of one ulp of m would not hold.
+    bound_m, bound_p = sgd_update_bounds(g, m_ref, p_ref, partial, lr=0.05,
+                                         clip_norm=clip_norm)
+    dm, dp = (m - m_ref).abs(), (p - p_ref).abs()
+    s_k, s_ref = (kernel_clip_scale(partial, clip_norm),
+                  clip_scale(partial, clip_norm))
+    flat = 1e-9 + 2e-7 * p_ref.abs()  # the former bound on |dp|
+    i, j = divmod(int((dp / flat).argmax()), d)
+    over_ulp = int((dm > ulp(m_ref)).sum())
+    print(f"[sgd {c}x{d} clip {clip_norm}] {int((s_k != s_ref).sum())} of "
+          f"{c} clip scales differ; {int((dp > flat).sum())} elements over "
+          f"the former flat bound, the worst |dp| {float(dp[i, j]):.3g} "
+          f"(bound {float(flat[i, j]):.3g}) at ({i}, {j}): g "
+          f"{float(g[i, j])!r}, m {float(m[i, j])!r} / "
+          f"{float(m_ref[i, j])!r}, p {float(p[i, j])!r} / "
+          f"{float(p_ref[i, j])!r}, scale {float(s_k[i])!r} / "
+          f"{float(s_ref[i])!r} (kernel / plain); {over_ulp} elements of m "
+          f"over one ulp")
+    assert bool((dm <= bound_m).all()) and bool((dp <= bound_p).all())
     torch.testing.assert_close(m, m_ref, rtol=1e-6, atol=1e-8)
-    torch.testing.assert_close(p, p_ref, rtol=2e-7, atol=1e-9)
 
 
 @pytest.mark.cuda
