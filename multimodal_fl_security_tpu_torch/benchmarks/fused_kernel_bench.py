@@ -13,8 +13,8 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
   same data, ms per call after ``torch.cuda.synchronize()``: the kernel
   path, the mirror, and the engine's ``make_local_train_fn`` (shuffled,
   with dropout: what the JAX bench compares against). It also counts the
-  kernel path's launches per call (and those of each backward conv
-  kernel: CUDA-core for f32, tensor-core for bf16), checks that two calls
+  kernel path's launches per call by wrapper and by kernel (the conv and
+  fc1 kernels: CUDA-core for f32, tensor-core for bf16), checks that two calls
   are bitwise equal, measures the drift from the mirror, and evaluates the
   FedAvg of the trained clients and of the engine trainer's on the bench's
   test set.
@@ -41,6 +41,11 @@ import time
 from typing import Callable, Dict
 
 import torch
+
+from multimodal_fl_security_tpu_torch.ops._launch import (
+    kernel_launches,
+    reset_kernel_launches,
+)
 
 CHECK_ATOL = 1e-4
 LEARNING_RATE = 0.01
@@ -73,10 +78,6 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
     ``use_dropout`` both drop with the masks of ``seed`` (the mirror's from
     the plain generator)."""
     from multimodal_fl_security_tpu_torch.models import create_model, init_model
-    from multimodal_fl_security_tpu_torch.ops.client_conv import (
-        KERNEL_LAUNCHES,
-        reset_kernel_launches,
-    )
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         fused_local_train,
     )
@@ -104,7 +105,7 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
         got = fused_local_train(params, images, labels, mask,
                                 use_dropout=use_dropout, seed=seed, **kw)
         _sync(device)
-        launches = dict(KERNEL_LAUNCHES)
+        launches = kernel_launches()
         want = mirror_local_train(params, images, labels, mask,
                                   dropout_masks=masks, **kw)
     _sync(device)
@@ -113,7 +114,7 @@ def run_check(device="cuda", clients: int = 4, n: int = 64,
     return {"mode": "check", "ok": bool(err <= CHECK_ATOL), "clients": clients,
             "use_dropout": use_dropout, "atol": CHECK_ATOL,
             "max_abs_err_vs_mirror": err, "max_param_move": moved,
-            "conv_kernel_launches": launches}
+            "kernel_launches": launches}
 
 
 def _time_call(fn: Callable, device, iters: int) -> float:
@@ -143,10 +144,6 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     """The three trainers at the north-star width, with dropout if asked;
     see the module doc."""
     from multimodal_fl_security_tpu_torch.bench import build_engine
-    from multimodal_fl_security_tpu_torch.ops.client_conv import (
-        KERNEL_LAUNCHES,
-        reset_kernel_launches,
-    )
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         DROPOUT_STEP_KERNELS,
         LAUNCHES_PER_DROPOUT_STEP,
@@ -200,7 +197,7 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     out = kernel()
     _sync(device)
     launches = {fn.__name__: fn.launches for fn in counted}
-    conv_kernels = dict(KERNEL_LAUNCHES)
+    per_kernel = kernel_launches()
     again = kernel()
     ref = mirror()
     _sync(device)
@@ -235,7 +232,7 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
         "mirror_ms": mirror_ms, "engine_ms": engine_ms,
         "ms_per_step": kernel_ms / steps,
         "launches": launches, "launches_total": sum(launches.values()),
-        "conv_kernel_launches": conv_kernels,
+        "kernel_launches": per_kernel,
         "launches_expected": per_step * steps,
         "bitwise_repeat": bitwise, "finite": finite,
         "max_drift_vs_mirror": drift,

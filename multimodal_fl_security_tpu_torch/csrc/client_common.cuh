@@ -68,3 +68,54 @@ inline cudaError_t mft_smem_optin(Kernel kernel, size_t bytes) {
 }
 
 constexpr size_t kMftMaxSmem = 227 * 1024;
+
+// ------------------------------------------------ tensor-core building blocks
+// (the bf16 kernels of client_conv.cu and client_dense.cu)
+
+__device__ __forceinline__ uint32_t mft_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses of matrix i; `_t` transposes each matrix.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major): bf16 in, f32 sums.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// lo and hi rounded to bf16, packed as one 32-bit word (lo in the low half).
+__device__ __forceinline__ uint32_t mft_pack2(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+             << 16;
+}
+
+// Element e of 8 packed bf16 (e known at compile time once the loops are
+// unrolled).
+__device__ __forceinline__ float mft_bf16_at(const uint4& v, int e) {
+  const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+  return __bfloat162float(__ushort_as_bfloat16(
+      static_cast<unsigned short>(e & 1 ? w >> 16 : w & 0xffffu)));
+}

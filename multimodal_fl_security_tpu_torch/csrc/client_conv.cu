@@ -27,6 +27,8 @@
 //  - conv2_wgrad_tc, stem_wgrad_tc, conv2_dgrad_tc: the same gradients for
 //    the compute dtype bf16, on the tensor cores (see their section below).
 //    conv_wgrad and conv_dgrad serve f32, the checking mode.
+//  - conv2_fwd_tc, stem_fwd_tc: the pooled forward for bf16 on the tensor
+//    cores. conv_fwd serves f32 and the raw mode (K3) in either dtype.
 //
 // What bounds the CUDA-core kernels: at the north-star shapes (100 clients
 // x 32 samples per step) conv2's forward is 2*9*32*64*196 = 7.2 MFLOP per
@@ -312,39 +314,6 @@ conv_dgrad_kernel(MftView dp, MftView h, MftView arg, MftView w, MftView dx,
 constexpr int kTcThreads = 256;  // 8 warps
 constexpr int kTcWarps = kTcThreads / 32;
 
-__device__ __forceinline__ uint32_t mft_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
-// row addresses of matrix i; `_t` transposes each matrix.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major): bf16 in, f32 sums.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // conv2's shape: the one the tensor-core conv2 kernels take.
 constexpr int kC2In = 32, kC2Out = 64, kC2Hw = 14;
 constexpr int kC2Pos = kC2Hw * kC2Hw;             // 196 output positions
@@ -367,22 +336,10 @@ __device__ __forceinline__ bf16 mft_bf16_zero() {
   return __float2bfloat16(0.f);
 }
 
-// Element e of 8 packed bf16, and of 8 packed bytes (e known at compile
-// time once the loops are unrolled).
-__device__ __forceinline__ float mft_bf16_at(const uint4& v, int e) {
-  const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
-  return __bfloat162float(__ushort_as_bfloat16(
-      static_cast<unsigned short>(e & 1 ? w >> 16 : w & 0xffffu)));
-}
-
+// Element e of 8 packed bytes (e known at compile time once the loops are
+// unrolled).
 __device__ __forceinline__ int mft_u8_at(const uint2& v, int e) {
   return static_cast<int>(((e < 4 ? v.x : v.y) >> (8 * (e & 3))) & 0xffu);
-}
-
-__device__ __forceinline__ uint32_t mft_pack2(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
-             << 16;
 }
 
 // A view's sample slab (client c, sample n) as a typed pointer.
@@ -968,6 +925,392 @@ conv2_dgrad_tc_kernel(MftView dp, MftView h, MftView arg, MftView w,
   }
 }
 
+// ------------------------------------------------- tensor-core forwards
+//
+// The forward for the compute dtype bf16, on the tensor cores: the port's
+// counterpart of forward_impl's stem and conv2 GEMMs (fused_train.py:
+// 361-403, through kdot3d, fused_kernel.py:137-159). Each is an implicit
+// GEMM on mma.sync.m16n8k16 (bf16 operands, f32 sums) with the pooled
+// epilogue of conv_fwd_kernel: the max over each 2 x 2 window's four f32
+// sums, the first maximum in (di, dj) order winning, then the bias rounded
+// to bf16, relu, one rounding to bf16 on the store and the argmax byte.
+//  - conv2_fwd_tc: Z[m, co] = sum over (kh, kw, ci) of X[(oy + kh - 1,
+//    ox + kw - 1), ci] * W[co, ci, kh, kw], M = 196 (-> 208) positions, N =
+//    64, K = 288 per sample. One block per (kFwSamples samples, client)
+//    stages the client's weights once as [kh * 3 + kw][co][ci] bf16; A = the
+//    rows of the zero-bordered input tile [16 x 16, 32] shifted by (kh, kw).
+//    Windows straddle the m16 tiles, so the f32 sums go through a [co][m]
+//    tile in shared memory (over the input tile, which is read by then) and
+//    each thread pools 8 adjacent (co, window) pairs into one 16-byte store
+//    of the NCHW map.
+//  - stem_fwd_tc: the stem's rows (cin <= 8) as a [256, 9 * cin -> NJP]
+//    patch of 64 pooled windows (row 4 w + q: position q of window w), as
+//    stem_wgrad_tc builds it; B = the weights [32][NJP] held in registers.
+//    A window's four rows are four lanes of one accumulator fragment, so the
+//    max is two shuffles; the pooled NHWC pixels (64 bytes each) leave
+//    through a tile in shared memory as 16-byte stores.
+//
+// What bounds them: conv2's forward is 23.1 GFLOP over 100 clients x 32
+// samples (0.023 ms at the bf16 peak) against ~30 MB of operands and
+// outputs: operations. The stem's is 1.4 GFLOP against ~70 MB (10 MB of f32
+// images in, 40 MB of bf16 maps and 20 MB of argmax out): bytes (0.021
+// ms). The design keeps the sums in registers and the tiles in shared
+// memory; what it leaves as the cost is the staging and the epilogue, one
+// thread per pair, as in the gradient kernels. The main path's layouts
+// (conv2's input NHWC and its maps NCHW, the stem's maps NHWC) are read and
+// written with 16-byte accesses; any other strides one element at a time.
+
+constexpr int kFwSamples = 4;  // samples a conv2 forward block stages weights for
+// f32 [co][m] rows of conv2's pre-pool sums: 212 = 4 (mod 16) words puts
+// the fragments' (row gq, column 2 tq) stores on 32 distinct banks.
+constexpr int kZfRow = 212;
+constexpr int kBorderChunks = 60 * kC2In / 8;  // the halo's 60 pixels, 16 B each
+
+template <typename T>
+__device__ __forceinline__ T* mft_slab_w(const MftView& v, int c, int n) {
+  return static_cast<T*>(v.ptr) + c * v.st[0] + n * v.st[1];
+}
+
+// conv2's pooled epilogue for pair i = co * 49 + p of the sums zf [co][m]:
+// the window's value through bias and relu, and its argmax in q.
+__device__ __forceinline__ float c2_pool(const float* zf, const float* bs,
+                                         int i, int& q) {
+  const int co = i / kC2Pooled, p = i % kC2Pooled;
+  const float* z = zf + co * kZfRow + 2 * (p / kC2Pw) * kC2Hw + 2 * (p % kC2Pw);
+  const float v[4] = {z[0], z[1], z[kC2Hw], z[kC2Hw + 1]};
+  float best = v[0];
+  q = 0;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (v[k] > best) {  // ties: the first in (di, dj) order
+      best = v[k];
+      q = k;
+    }
+  }
+  return fmaxf(best + bs[co], 0.f);
+}
+
+// Warp w: output rows (positions) 16 w and 16 (w + 8) + [0, 16) of the 208
+// (warps 5-7 have one tile), all 64 channels, sharing each B fragment
+// between its two tiles. While the tensor cores run on sample n, sample
+// n + 1's loads are in flight.
+template <bool kDenseX, bool kDenseOut>
+__global__ void __launch_bounds__(kTcThreads, 2)
+conv2_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
+                    int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // ws: [kh * 3 + kw][co][ci]; bs: the bias rounded to bf16; xs: [halo
+  // pixel][ci], the input with its zero border; zf: [co][m], the f32 sums,
+  // over xs once the tensor cores have read it.
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);
+  float* bs = reinterpret_cast<float*>(ws + 9 * kC2Out * kXRow);
+  bf16* xs = reinterpret_cast<bf16*>(bs + kC2Out);
+  float* zf = reinterpret_cast<float*>(xs);
+  const int c = blockIdx.y;
+  const int n0 = blockIdx.x * kFwSamples;
+  const int n1 = min(batch, n0 + kFwSamples);
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;
+  C2Input<kDenseX> xr;
+  xr.load(x, c, n0);
+  // Thread i reads the 9 taps of (co, ci) = (i / 32, i % 32), adjacent in
+  // w's own order; a warp's lanes write adjacent ci.
+  for (int i = t; i < kC2Out * kC2In; i += kTcThreads) {
+    const int co = i / kC2In, ci = i % kC2In;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      ws[(tap * kC2Out + co) * kXRow + ci] = __float2bfloat16(
+          mft_ld(w, mft_off(w, c, co, ci, tap / 3, tap % 3)));
+    }
+  }
+  if (t < kC2Out) bs[t] = mft_round(mft_ld(b, mft_off(b, c, 0, t, 0, 0)), kBF16);
+  // This lane's ldmatrix rows (neither transposed). A: the halo pixel under
+  // output row m, shifted by the tap, channels 8 (li >> 1) + 16 kc; pad rows
+  // (m >= 196) read any pixel, and their sums are never used. B: co rows
+  // 8 (li >> 1) + lr + 16 ng of the tap's block, channels 8 (li & 1) + 16 kc.
+  const bool two = warp + kTcWarps < kC2Rows / 16;
+  int pix[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int m = (warp + u * kTcWarps) * 16 + (li & 1) * 8 + lr;
+    pix[u] = m < kC2Pos ? (m / kC2Hw) * kHaloW + m % kC2Hw : 0;
+  }
+  const uint32_t xs_addr = mft_smem_addr(xs) + (li >> 1) * 8 * 2;
+  const uint32_t b_addr = mft_smem_addr(
+      ws + ((li >> 1) * 8 + lr) * kXRow + (li & 1) * 8);
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int n = n0; n < n1; ++n) {
+    __syncthreads();  // weights staged, or the last sample's sums read
+    if (t < kBorderChunks) {  // zf overwrote the border: zero it again
+      const int bp = t / 4;
+      const int pix_b = bp < 16   ? bp
+                        : bp < 32 ? (kHaloW - 1) * kHaloW + bp - 16
+                        : bp < 46 ? (bp - 31) * kHaloW
+                                  : (bp - 45) * kHaloW + kHaloW - 1;
+      *reinterpret_cast<uint4*>(xs + pix_b * kXRow + 8 * (t % 4)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    xr.store(xs);
+    __syncthreads();
+    if (n + 1 < n1) xr.load(x, c, n + 1);
+    float acc[2][8][4] = {};
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * kHaloW + tap % 3;
+#pragma unroll
+      for (int kc = 0; kc < kC2In / 16; ++kc) {
+        uint32_t a0[4], a1[4];
+        ldsm4(a0, xs_addr + ((pix[0] + shift) * kXRow + kc * 16) * 2);
+        if (two) ldsm4(a1, xs_addr + ((pix[1] + shift) * kXRow + kc * 16) * 2);
+#pragma unroll
+        for (int ng = 0; ng < kC2Out / 16; ++ng) {
+          uint32_t bb[4];
+          ldsm4(bb, b_addr + ((tap * kC2Out + ng * 16) * kXRow + kc * 16) * 2);
+          mma16816(acc[0][2 * ng], a0, bb[0], bb[1]);
+          mma16816(acc[0][2 * ng + 1], a0, bb[2], bb[3]);
+          if (two) {
+            mma16816(acc[1][2 * ng], a1, bb[0], bb[1]);
+            mma16816(acc[1][2 * ng + 1], a1, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp has read xs: the sums go over it
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = (warp + u * kTcWarps) * 16 + gq + (e >> 1) * 8;
+          zf[(nt * 8 + 2 * tq + (e & 1)) * kZfRow + row] = acc[u][nt][e];
+        }
+      }
+    }
+    __syncthreads();
+    if (kDenseOut) {
+      // Pairs 8 (t + 256 k) .. + 7: one 16-byte and one 8-byte store each.
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i0 = 8 * (t + k * kTcThreads);
+        if (i0 < kC2Wins) {
+          float v[8];
+          int q[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = c2_pool(zf, bs, i0 + e, q[e]);
+          *reinterpret_cast<uint4*>(mft_slab_w<bf16>(out, c, n) + i0) =
+              make_uint4(mft_pack2(v[0], v[1]), mft_pack2(v[2], v[3]),
+                         mft_pack2(v[4], v[5]), mft_pack2(v[6], v[7]));
+          uint32_t qw[2] = {0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) qw[e / 4] |= static_cast<uint32_t>(q[e]) << (8 * (e % 4));
+          *reinterpret_cast<uint2*>(mft_slab_w<uint8_t>(arg, c, n) + i0) =
+              make_uint2(qw[0], qw[1]);
+        }
+      }
+    } else {
+      for (int i = t; i < kC2Wins; i += kTcThreads) {
+        int q;
+        const float v = c2_pool(zf, bs, i, q);
+        const int co = i / kC2Pooled, p = i % kC2Pooled;
+        mft_st(out, mft_off(out, c, n, co, p / kC2Pw, p % kC2Pw), v);
+        mft_st(arg, mft_off(arg, c, n, co, p / kC2Pw, p % kC2Pw),
+               static_cast<float>(q));
+      }
+    }
+  }
+}
+
+constexpr int kSfChunks = 4;            // 64-window chunks a stem block runs
+constexpr int kSORow = kStemOut + 8;    // bf16 output tile rows, 80 B
+constexpr int kSARow = kStemOut + 16;   // argmax tile rows, 48 B
+
+template <int NJP>
+constexpr size_t stem_fwd_smem() {
+  return sizeof(bf16) * (kStemRows + kStemOut) * (NJP + 8) +
+         sizeof(bf16) * kStemWindows * kSORow + kStemWindows * kSARow;
+}
+
+// One block per (kSfChunks * 64 of a client's pooled windows, client), the
+// windows in (sample, row, column) order. Thread t builds patch row t
+// (position t % 4 of window t / 4) in registers, as bf16 pairs, and stores
+// it as whole 16-byte chunks; the next rows' loads are in flight while the
+// tensor cores run. Warp w: rows 16 w and 16 (w + 8) + [0, 16), all 32
+// channels. The input is f32 (the images), of any strides.
+template <int NJP, bool kDenseOut>
+__global__ void __launch_bounds__(kTcThreads)
+stem_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
+                   ConvGeom g) {
+  static_assert(kStemRows == kTcThreads, "one patch row a thread");
+  constexpr int kPRow = NJP + 8;  // 16-byte padded patch and weight rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ps = reinterpret_cast<bf16*>(smem_raw);  // [row][(kh, kw, ci)]
+  bf16* ws = ps + kStemRows * kPRow;             // [co][(kh, kw, ci)]
+  bf16* os = ws + kStemOut * kPRow;              // [window][co], pooled
+  uint8_t* as = reinterpret_cast<uint8_t*>(os + kStemWindows * kSORow);
+  const int c = blockIdx.y;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nj = 9 * g.cin;
+  // j / cin as (j * inv) >> 16: exact for j < 80, cin <= 8
+  const int inv = (65536 + g.cin - 1) / g.cin;
+  const int pw = g.ow / 2;
+  const int per = (g.oh / 2) * pw;
+  const int wbeg = blockIdx.x * kSfChunks * kStemWindows;
+  const int wend = min(g.batch * per, wbeg + kSfChunks * kStemWindows);
+  for (int i = t; i < kStemOut * NJP; i += kTcThreads) {
+    const int co = i / NJP, j = i % NJP;
+    float v = 0.f;
+    if (j < nj) {
+      const int tap = j / g.cin;
+      v = mft_ld(w, mft_off(w, c, co, j % g.cin, tap / 3, tap % 3));
+    }
+    ws[co * kPRow + j] = __float2bfloat16(v);
+  }
+  float bias[4][2];  // this lane's channels nt * 8 + 2 tq + e
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias[nt][e] = mft_round(
+          mft_ld(b, mft_off(b, c, 0, nt * 8 + 2 * tq + e, 0, 0)), kBF16);
+    }
+  }
+  // Patch row t's columns as bf16 pairs; 0 outside the image and past the
+  // last window.
+  uint32_t xv[NJP / 2];
+  auto load = [&](int w0) {
+    const int wi = w0 + t / 4, q = t % 4;
+#pragma unroll
+    for (int j2 = 0; j2 < NJP / 2; ++j2) xv[j2] = 0u;
+    if (wi < wend) {
+      const int n = wi / per, p = wi % per;
+      const int oy = 2 * (p / pw) + (q >> 1) - 1;
+      const int ox = 2 * (p % pw) + (q & 1) - 1;
+      const float* xs = mft_slab<float>(x, c, n);
+#pragma unroll
+      for (int j2 = 0; j2 < NJP / 2; ++j2) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 2 * j2 + e;
+          const int tap = (j * inv) >> 16;  // kh * 3 + kw
+          const int iy = oy + tap / 3, ix = ox + tap % 3;
+          v[e] = j < nj && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w
+                     ? xs[(j - tap * g.cin) * x.st[2] + iy * x.st[3] +
+                          ix * x.st[4]]
+                     : 0.f;
+        }
+        xv[j2] = mft_pack2(v[0], v[1]);
+      }
+    }
+  };
+  if (wbeg < wend) load(wbeg);
+  __syncthreads();  // the weights are staged
+  // B for every k16 step and 16 channels, kept in registers: ldmatrix rows
+  // co = 8 (li >> 1) + lr + 16 ng, columns 8 (li & 1) + 16 ks.
+  uint32_t bw[NJP / 16][2][4];
+  {
+    const uint32_t b_addr = mft_smem_addr(
+        ws + ((li >> 1) * 8 + lr) * kPRow + (li & 1) * 8);
+#pragma unroll
+    for (int ks = 0; ks < NJP / 16; ++ks) {
+#pragma unroll
+      for (int ng = 0; ng < 2; ++ng) {
+        ldsm4(bw[ks][ng], b_addr + (ng * 16 * kPRow + ks * 16) * 2);
+      }
+    }
+  }
+  const uint32_t a_addr = mft_smem_addr(
+      ps + ((li & 1) * 8 + lr) * kPRow + (li >> 1) * 8);
+  for (int w0 = wbeg; w0 < wend; w0 += kStemWindows) {
+    __syncthreads();  // the previous rows and output tile are read
+#pragma unroll
+    for (int k = 0; k < NJP / 8; ++k) {
+      *reinterpret_cast<uint4*>(ps + t * kPRow + 8 * k) =
+          make_uint4(xv[4 * k], xv[4 * k + 1], xv[4 * k + 2], xv[4 * k + 3]);
+    }
+    __syncthreads();
+    if (w0 + kStemWindows < wend) load(w0 + kStemWindows);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int mt = warp + u * kTcWarps;
+      float acc[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < NJP / 16; ++ks) {
+        uint32_t a[4];
+        ldsm4(a, a_addr + (mt * 16 * kPRow + ks * 16) * 2);
+#pragma unroll
+        for (int ng = 0; ng < 2; ++ng) {
+          mma16816(acc[2 * ng], a, bw[ks][ng][0], bw[ks][ng][1]);
+          mma16816(acc[2 * ng + 1], a, bw[ks][ng][2], bw[ks][ng][3]);
+        }
+      }
+      // Rows gq and gq + 8 are position q = gq % 4 of windows 4 mt + gq / 4
+      // and 4 mt + gq / 4 + 2: the four positions of a window sit in lanes
+      // 4 apart. The larger sum wins, a tie the lower q: the first maximum.
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = acc[nt][e];
+          int q = gq & 3;
+#pragma unroll
+          for (int s = 4; s <= 8; s *= 2) {
+            const float ov = __shfl_xor_sync(0xffffffffu, v, s);
+            const int oq = __shfl_xor_sync(0xffffffffu, q, s);
+            if (ov > v || (ov == v && oq < q)) {
+              v = ov;
+              q = oq;
+            }
+          }
+          if ((gq & 3) == 0) {
+            const int r = mt * 4 + gq / 4 + (e >> 1) * 2;
+            const int co = nt * 8 + 2 * tq + (e & 1);
+            os[r * kSORow + co] =
+                __float2bfloat16(fmaxf(v + bias[nt][e & 1], 0.f));
+            as[r * kSARow + co] = static_cast<uint8_t>(q);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (kDenseOut) {
+      // Thread t: 8 channels of window t / 4; threads < 128: 16 argmax
+      // bytes of window t / 2.
+      const int wi = w0 + t / 4;
+      if (wi < wend) {
+        *reinterpret_cast<uint4*>(mft_slab_w<bf16>(out, c, wi / per) +
+                                  (wi % per) * kStemOut + 8 * (t % 4)) =
+            *reinterpret_cast<const uint4*>(os + (t / 4) * kSORow +
+                                            8 * (t % 4));
+      }
+      const int wa = w0 + t / 2;
+      if (t < 2 * kStemWindows && wa < wend) {
+        *reinterpret_cast<uint4*>(mft_slab_w<uint8_t>(arg, c, wa / per) +
+                                  (wa % per) * kStemOut + 16 * (t % 2)) =
+            *reinterpret_cast<const uint4*>(as + (t / 2) * kSARow +
+                                            16 * (t % 2));
+      }
+    } else {
+      for (int i = t; i < kStemWindows * kStemOut; i += kTcThreads) {
+        const int r = i / kStemOut, co = i % kStemOut;
+        const int wi = w0 + r;
+        if (wi >= wend) continue;
+        const int n = wi / per, p = wi % per;
+        mft_st(out, mft_off(out, c, n, co, p / pw, p % pw),
+               __bfloat162float(os[r * kSORow + co]));
+        mft_st(arg, mft_off(arg, c, n, co, p / pw, p % pw),
+               static_cast<float>(as[r * kSARow + co]));
+      }
+    }
+  }
+}
+
 // What the tensor-core kernels take: bf16, a pooled 3 x 3 SAME convolution
 // at stride 1 with conv2's shape or, given its f32 input x (weight gradient
 // only), a stem's (1 <= cin <= 8 -> 32: 9 cin columns and the ones column
@@ -984,6 +1327,22 @@ TcKind tc_kind(const ConvGeom& g, const MftView& dp, const MftView* x) {
   }
   if (x && x->dtype == kF32 && g.cout == kStemOut && g.cin >= 1 &&
       9 * g.cin < 80) {
+    return kTcStem;
+  }
+  return kTcNone;
+}
+
+// The forward's: bf16, pooled 3 x 3 SAME at stride 1, conv2's shape or a
+// stem's (1 <= cin <= 8 -> 32, its input x in f32).
+TcKind fwd_tc_kind(const ConvGeom& g, const MftView& x) {
+  if (g.cdt != kBF16 || g.k != 3 || g.stride != 1 || g.pad != 1 || !g.pool ||
+      g.oh != g.h || g.ow != g.w || g.h % 2 || g.w % 2) {
+    return kTcNone;
+  }
+  if (g.cin == kC2In && g.cout == kC2Out && g.h == kC2Hw && g.w == kC2Hw) {
+    return kTcConv2;
+  }
+  if (x.dtype == kF32 && g.cout == kStemOut && g.cin >= 1 && g.cin <= 8) {
     return kTcStem;
   }
   return kTcNone;
@@ -1043,6 +1402,33 @@ cudaError_t launch_stem(const MftView* x, const MftView* dp, const MftView* h,
   return a->g.cin == 1
              ? launch_stem<16, kDenseZ>(x, dp, h, arg, gw, gb, a, st)
              : launch_stem<80, kDenseZ>(x, dp, h, arg, gw, gb, a, st);
+}
+
+template <int NJP, bool kDenseOut>
+cudaError_t launch_stem_fwd(const MftView* x, const MftView* w,
+                            const MftView* b, const MftView* out,
+                            const MftView* arg, const MftConvArgs* a,
+                            cudaStream_t stream) {
+  constexpr size_t smem = stem_fwd_smem<NJP>();
+  const auto kernel = stem_fwd_tc_kernel<NJP, kDenseOut>;
+  cudaError_t err = mft_smem_optin(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int windows = a->g.batch * (a->g.oh / 2) * (a->g.ow / 2);
+  const int per_block = kSfChunks * kStemWindows;
+  kernel<<<dim3((windows + per_block - 1) / per_block, a->clients),
+           kTcThreads, smem, stream>>>(*x, *w, *b, *out, *arg, a->g);
+  return cudaGetLastError();
+}
+
+template <bool kDenseOut>
+cudaError_t launch_stem_fwd(const MftView* x, const MftView* w,
+                            const MftView* b, const MftView* out,
+                            const MftView* arg, const MftConvArgs* a,
+                            cudaStream_t st) {
+  // The 9 cin columns padded to 16 for the path's one channel, else 80.
+  return a->g.cin == 1
+             ? launch_stem_fwd<16, kDenseOut>(x, w, b, out, arg, a, st)
+             : launch_stem_fwd<80, kDenseOut>(x, w, b, out, arg, a, st);
 }
 
 }  // namespace
@@ -1180,6 +1566,48 @@ int mft_conv_dgrad_tc(const MftView* dp, const MftView* h, const MftView* arg,
                           ? conv2_dgrad_tc_kernel<true>
                           : conv2_dgrad_tc_kernel<false>;
   return launch_tc(kernel, grid, smem, st, g.batch, dp, h, arg, w, dx);
+}
+
+// The forward's tensor-core kernels, for the compute dtype bf16: the same
+// arguments as mft_conv_fwd. mft_conv_fwd_tc_kind says which takes a call
+// (1 conv2, 2 the stem, 0 none); what none takes is refused.
+int mft_conv_fwd_tc_kind(const MftConvArgs* a, const MftView* x) {
+  return fwd_tc_kind(a->g, *x);
+}
+
+int mft_conv_fwd_tc(const MftView* x, const MftView* w, const MftView* b,
+                    const MftView* out, const MftView* arg,
+                    const MftConvArgs* a, int device, void* stream) {
+  const ConvGeom& g = a->g;
+  const TcKind kind = fwd_tc_kind(g, *x);
+  if (a->clients <= 0 || g.batch <= 0 || kind == kTcNone) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == kTcStem) {
+    const long long pw = g.ow / 2;
+    const bool dense = dense_slab(*out, kBF16, 1, pw * kStemOut, kStemOut) &&
+                       dense_slab(*arg, kU8, 1, pw * kStemOut, kStemOut);
+    return dense ? launch_stem_fwd<true>(x, w, b, out, arg, a, st)
+                 : launch_stem_fwd<false>(x, w, b, out, arg, a, st);
+  }
+  const bool dx = dense_slab(*x, kBF16, 1, kC2Hw * kC2In, kC2In);
+  const bool dout = dense_slab(*out, kBF16, kC2Pooled, kC2Pw, 1) &&
+                    dense_slab(*arg, kU8, kC2Pooled, kC2Pw, 1);
+  const size_t smem = sizeof(bf16) * 9 * kC2Out * kXRow +
+                      sizeof(float) * kC2Out +
+                      sizeof(float) * kC2Out * kZfRow;  // zf over xs
+  static_assert(sizeof(float) * kC2Out * kZfRow >=
+                    sizeof(bf16) * kHaloPix * kXRow,
+                "the sums' tile covers the input tile");
+  const auto kernel = dx ? (dout ? conv2_fwd_tc_kernel<true, true>
+                                 : conv2_fwd_tc_kernel<true, false>)
+                         : (dout ? conv2_fwd_tc_kernel<false, true>
+                                 : conv2_fwd_tc_kernel<false, false>);
+  const dim3 grid((g.batch + kFwSamples - 1) / kFwSamples, a->clients);
+  return launch_tc(kernel, grid, smem, st, g.batch, x, w, b, out, arg);
 }
 
 const char* mft_client_conv_error_string(int err) {

@@ -16,16 +16,31 @@
 //    dx[:, slice] = dz W[:, slice] (optionally times a relu mask), and db in
 //    the first slice's block. Sums over the batch run in a fixed order, so
 //    two calls are bitwise equal.
+//  - dense_fwd_tc: the forward for wdtype bf16 (fc1 on the path) on the
+//    tensor cores: mma.sync.m16n8k16 with bf16 operands and f32 sums, A = x
+//    rows, B = W rows ([f][k], the "col" operand as it is), both through
+//    ldmatrix from shared memory, W converted from f32 to bf16 while
+//    staged. At fc1's shapes the 160 MB of f32 weights bound it (0.048 ms at
+//    3.35 TB/s; the products are 0.003 ms at the bf16 peak), so K is split
+//    over a cluster of kDfSplits blocks per (32-row, 64-feature) tile, 1,400
+//    blocks over 132 SMs, each streaming its share of W with the next 64-deep
+//    slice's loads in flight. Rank 0 adds the ranks' partial sums through
+//    distributed shared memory in rank order: no atomics, two calls are
+//    bitwise equal. dense_fwd serves wdtype f32 (fc2, and the checking mode).
 //
-// What bounds them: fc1 is 2*32*3136*128 = 25.7 MFLOP per client per pass,
-// 2.6 GFLOP per step over 100 clients; its weights are 160 MB per step in
-// f32, read from the flat buffer. At 67 TFLOP/s (f32 FMA) and 3.35 TB/s that
-// is ~0.04 ms of arithmetic against ~0.05 ms of HBM per pass: the weight
-// traffic bounds the forward and each backward product. The kernels read
-// each weight once per pass and write each gradient once; f32 FMA on the CUDA
-// cores, no tensor cores.
+// What bounds the CUDA-core kernels: fc1 is 2*32*3136*128 = 25.7 MFLOP per
+// client per pass, 2.6 GFLOP per step over 100 clients; its weights are 160
+// MB per step in f32, read from the flat buffer. At 67 TFLOP/s (f32 FMA) and
+// 3.35 TB/s that is ~0.04 ms of arithmetic against ~0.05 ms of HBM per pass:
+// the weight traffic bounds the forward and each backward product. The
+// kernels read each weight once per pass and write each gradient once; f32
+// FMA on the CUDA cores.
+
+#include <cooperative_groups.h>
 
 #include "client_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -142,6 +157,166 @@ dense_bwd_kernel(MftView dz, MftView x, MftView w, MftView mask, MftView gw,
   }
 }
 
+// ------------------------------------------------------------ tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDfSplits = 7;           // K splits: the blocks of a cluster
+constexpr int kDfRows = 32;            // block tile: rows
+constexpr int kDfCols = 64;            // block tile: features
+constexpr int kDfK = 64;               // k slice staged at once
+constexpr int kDfRow = kDfK + 8;       // bf16 smem rows, 144 B
+constexpr int kDfRed = kDfCols + 4;    // f32 partial-sum rows
+// The staging and warp maps below are written for exactly these sizes: 8
+// x columns and 8 W pairs per thread, 32 W pairs per row, 2 x 4 warps of
+// 16 x 16 outputs.
+static_assert(kThreads == 256 && kDfRows * kDfK == 8 * kThreads &&
+                  kDfCols * kDfK == 16 * kThreads && kDfK == 64 &&
+                  kDfRows == 2 * 16 && kDfCols == 4 * 16,
+              "dense_fwd_tc_kernel's staging assumes 256 threads and a "
+              "32 x 64 x 64 tile");
+
+// One cluster of kDfSplits blocks per (row tile, feature tile, client):
+// grid (kDfSplits, row tiles x feature tiles, clients); rank r sums k in
+// [r kspan, (r + 1) kspan). Thread t stages x row t / 8, columns 8 (t % 8)
+// .. + 7 of a slice and W elements 2 (t + 256 j) .. + 1 (row idx / 32,
+// column pair idx % 32), j < 8: out of range, zeros. kVec: x bf16 with
+// 16-byte rows and W f32 with 8-byte pairs (the main path: fc1's weight
+// rows of an odd client are 8-byte aligned only), read as vectors; else
+// element by element, any strides and types. Warp w: rows 16 (w & 1) + [0,
+// 16), features 16 (w >> 1) + [0, 16) of the tile.
+template <bool kVec>
+__global__ void __cluster_dims__(kDfSplits, 1, 1) __launch_bounds__(kThreads)
+dense_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView y, int rows,
+                    int k, int f, int relu, int kspan) {
+  __shared__ __align__(16) bf16 xs[kDfRows * kDfRow];
+  __shared__ __align__(16) bf16 ws[kDfCols * kDfRow];
+  __shared__ float red[kDfRows * kDfRed];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ftiles = (f + kDfCols - 1) / kDfCols;
+  const int r0 = blockIdx.y / ftiles * kDfRows;
+  const int f0 = blockIdx.y % ftiles * kDfCols;
+  const int c = blockIdx.z;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;
+  const int kbeg = rank * kspan;
+  const int kend = min(k, kbeg + kspan);
+  const int xr = t / 8, xk = 8 * (t % 8);
+  float xv[8], wv[16];
+  auto load = [&](int k0) {
+    const bool x_in = r0 + xr < rows;
+    if (kVec) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (x_in && k0 + xk < kend) {
+        v = *reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(x.ptr) + c * x.st[0] +
+            (r0 + xr) * x.st[1] + k0 + xk);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xv[e] = mft_bf16_at(v, e);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        xv[e] = x_in && k0 + xk + e < kend
+                    ? mft_ld(x, mft_off(x, c, r0 + xr, k0 + xk + e, 0, 0))
+                    : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int idx = t + j * kThreads;
+      const int fr = idx / 32, kk = k0 + 2 * (idx % 32);
+      const bool f_in = f0 + fr < f;
+      if (kVec) {
+        float2 v = make_float2(0.f, 0.f);
+        if (f_in && kk < kend) {
+          v = *reinterpret_cast<const float2*>(
+              static_cast<const float*>(w.ptr) + c * w.st[0] +
+              (f0 + fr) * w.st[1] + kk);
+        }
+        wv[2 * j] = v.x;
+        wv[2 * j + 1] = v.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          wv[2 * j + e] = f_in && kk + e < kend
+                              ? mft_ld(w, mft_off(w, c, f0 + fr, kk + e, 0, 0))
+                              : 0.f;
+        }
+      }
+    }
+  };
+  // ldmatrix rows (neither transposed). A: x row 16 (warp & 1) + 8 (li & 1)
+  // + lr, columns 8 (li >> 1); B: W row 16 (warp >> 1) + 8 (li >> 1) + lr,
+  // columns 8 (li & 1).
+  const uint32_t a_addr = mft_smem_addr(
+      xs + ((warp & 1) * 16 + (li & 1) * 8 + lr) * kDfRow + (li >> 1) * 8);
+  const uint32_t b_addr = mft_smem_addr(
+      ws + ((warp >> 1) * 16 + (li >> 1) * 8 + lr) * kDfRow + (li & 1) * 8);
+  float acc[2][4] = {};
+  if (kbeg < kend) load(kbeg);
+  for (int k0 = kbeg; k0 < kend; k0 += kDfK) {
+    __syncthreads();  // the previous slice is read
+    *reinterpret_cast<uint4*>(xs + xr * kDfRow + xk) =
+        make_uint4(mft_pack2(xv[0], xv[1]), mft_pack2(xv[2], xv[3]),
+                   mft_pack2(xv[4], xv[5]), mft_pack2(xv[6], xv[7]));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int idx = t + j * kThreads;
+      *reinterpret_cast<uint32_t*>(ws + (idx / 32) * kDfRow + 2 * (idx % 32)) =
+          mft_pack2(wv[2 * j], wv[2 * j + 1]);
+    }
+    __syncthreads();
+    if (k0 + kDfK < kend) load(k0 + kDfK);
+#pragma unroll
+    for (int ks = 0; ks < kDfK / 16; ++ks) {
+      uint32_t a[4], bb[4];
+      ldsm4(a, a_addr + ks * 32);
+      ldsm4(bb, b_addr + ks * 32);
+      mma16816(acc[0], a, bb[0], bb[1]);
+      mma16816(acc[1], a, bb[2], bb[3]);
+    }
+  }
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      red[((warp & 1) * 16 + gq + (e >> 1) * 8) * kDfRed + (warp >> 1) * 16 +
+          nt * 8 + 2 * tq + (e & 1)] = acc[nt][e];
+    }
+  }
+  cluster.sync();  // every rank's partial sums are in its shared memory
+  if (rank == 0) {
+    for (int i = t; i < kDfRows * kDfCols; i += kThreads) {
+      const int r = i / kDfCols, fc = i % kDfCols;
+      if (r0 + r >= rows || f0 + fc >= f) continue;
+      const int o = r * kDfRed + fc;
+      float s = red[o];
+#pragma unroll
+      for (int q = 1; q < kDfSplits; ++q) {
+        s += cluster.map_shared_rank(&red[0], q)[o];
+      }
+      float v = s + mft_round(mft_ld(b, mft_off(b, c, 0, f0 + fc, 0, 0)), kBF16);
+      if (relu) v = fmaxf(v, 0.f);
+      mft_st(y, mft_off(y, c, r0 + r, f0 + fc, 0, 0), v);
+    }
+  }
+  cluster.sync();  // rank 0 has read the others' shared memory
+}
+
+// Whether x (bf16) and w (f32) take dense_fwd_tc_kernel's vector loads: x
+// rows 16-byte aligned, W rows 8-byte aligned, k a multiple of 8.
+bool dense_vec(const MftView& x, const MftView& w, int k) {
+  return x.dtype == kBF16 && w.dtype == kF32 && k % 8 == 0 &&
+         x.st[2] == 1 && x.st[0] % 8 == 0 && x.st[1] % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(x.ptr) % 16 == 0 && w.st[2] == 1 &&
+         w.st[0] % 2 == 0 && w.st[1] % 2 == 0 &&
+         reinterpret_cast<uintptr_t>(w.ptr) % 8 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -158,6 +333,30 @@ int mft_dense_fwd(const MftView* x, const MftView* w, const MftView* b,
                   clients);
   dense_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       *x, *w, *b, *y, rows, k, f, relu, wdt);
+  return cudaGetLastError();
+}
+
+// The forward for wdtype bf16 on the tensor cores: the same arguments as
+// mft_dense_fwd without wdt; x must be bf16 (the wrapper refuses others).
+int mft_dense_fwd_tc(const MftView* x, const MftView* w, const MftView* b,
+                     const MftView* y, int clients, int rows, int k, int f,
+                     int relu, int device, void* stream) {
+  if (clients <= 0 || rows <= 0 || k <= 0 || f <= 0 || clients > 65535 ||
+      x->dtype != kBF16) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int per = (k + kDfSplits - 1) / kDfSplits;
+  const int kspan = (per + kDfK - 1) / kDfK * kDfK;
+  const dim3 grid(kDfSplits,
+                  ((rows + kDfRows - 1) / kDfRows) *
+                      ((f + kDfCols - 1) / kDfCols),
+                  clients);
+  const auto kernel = dense_vec(*x, *w, k) ? dense_fwd_tc_kernel<true>
+                                           : dense_fwd_tc_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *x, *w, *b, *y, rows, k, f, relu, kspan);
   return cudaGetLastError();
 }
 

@@ -10,7 +10,7 @@ client's images, a layer's segment of the flat buffer) in place.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -52,6 +52,34 @@ def check(lib: ctypes.CDLL, err: int, what: str, prefix: str) -> None:
         msg = getattr(lib, f"mft_{prefix}_error_string")(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err} "
                            f"({msg})")
+
+
+#: launches of each local-training kernel of ``csrc/client_conv.cu`` and
+#: ``csrc/client_dense.cu``, by name. In f32 (the checking mode) the
+#: wrappers launch the CUDA-core kernels ``conv_fwd``, ``conv_wgrad``,
+#: ``conv_dgrad`` and ``dense_fwd``; in bf16 the tensor-core kernels
+#: ``conv2_fwd_tc``, ``stem_fwd_tc``, ``conv_wgrad_tc`` (conv2's and the
+#: stem's instantiations), ``conv_dgrad_tc`` and ``dense_fwd_tc`` (fc2, with
+#: f32 weights, stays on ``dense_fwd``); the raw mode (K3) runs ``conv_fwd``
+#: in either dtype. Each wrapper's ``.launches`` counts all of its own.
+KERNEL_LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("conv_fwd", "conv2_fwd_tc", "stem_fwd_tc", "conv_wgrad", "conv_wgrad_tc",
+     "conv_dgrad", "conv_dgrad_tc", "dense_fwd", "dense_fwd_tc"), 0)
+
+
+def count(kernel: str) -> None:
+    """One launch of ``kernel`` (a key of :data:`KERNEL_LAUNCHES`)."""
+    KERNEL_LAUNCHES[kernel] += 1
+
+
+def reset_kernel_launches() -> None:
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+def kernel_launches() -> Dict[str, int]:
+    """A copy of :data:`KERNEL_LAUNCHES`."""
+    return dict(KERNEL_LAUNCHES)
 
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:

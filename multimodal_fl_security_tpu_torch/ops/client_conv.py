@@ -43,6 +43,7 @@ from multimodal_fl_security_tpu_torch.ops._launch import (
     DTYPE_CODES,
     MftView,
     check,
+    count,
     require_cuda,
     stream_of,
     view,
@@ -72,13 +73,15 @@ def _library() -> ctypes.CDLL:
     p = ctypes.POINTER(MftView)
     args = ctypes.POINTER(ConvArgs)
     for name, n_views in (("mft_conv_fwd", 5), ("mft_conv_wgrad", 6),
-                          ("mft_conv_dgrad", 5), ("mft_conv_wgrad_tc", 6),
-                          ("mft_conv_dgrad_tc", 5)):
+                          ("mft_conv_dgrad", 5), ("mft_conv_fwd_tc", 5),
+                          ("mft_conv_wgrad_tc", 6), ("mft_conv_dgrad_tc", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_views + [args, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.mft_conv_tc_kind.argtypes = [args, p, p]
     lib.mft_conv_tc_kind.restype = ctypes.c_int
+    lib.mft_conv_fwd_tc_kind.argtypes = [args, p]
+    lib.mft_conv_fwd_tc_kind.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,49 +170,64 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     [C, C_out, C_in, K, K]. With ``pool``: then the 2x2 window max, ``b``
     [C, C_out] and relu, returning the pooled map [C, B, C_out, OH/2, OW/2]
     and its argmax (uint8, q = di*2 + dj); without: the raw output and None.
-    Outputs are in ``dtype``, stored NHWC when ``channels_last``.
-    ``conv_fwd.launches`` counts kernel launches."""
+    Outputs are in ``dtype``, stored NHWC when ``channels_last``. f32 and
+    the raw mode (K3) run the CUDA-core kernel ``conv_fwd``; the pooled
+    bf16 forward runs a tensor-core kernel, ``conv2_fwd_tc`` or
+    ``stem_fwd_tc`` (see :func:`_fwd_kernel_for`). ``conv_fwd.launches``
+    counts the launches of all three, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_fwd_plain(x, w, b, stride=stride, pad=pad, pool=pool,
                               dtype=dtype, channels_last=channels_last)
     _check_conv(x, w, b, dtype)
     device = require_cuda(x, w, *([b] if b is not None else []))
     a = _geom(x.shape, w.shape, stride, pad, pool, dtype)
+    lib = _library()
+    xv = view(x, _IMAGE_AXES)
+    kernel = _fwd_kernel_for(lib, a, xv)
     ph, pw = (a.g.oh // 2, a.g.ow // 2) if pool else (a.g.oh, a.g.ow)
     shape = (x.shape[0], x.shape[1], w.shape[1], ph, pw)
     out = _alloc(shape, dtype, device, channels_last)
     arg = _alloc(shape, torch.uint8, device, channels_last) if pool else None
-    lib = _library()
-    views = [view(x, _IMAGE_AXES), view(w, _WEIGHT_AXES),
-             view(b if pool else None, _BIAS_AXES),
+    views = [xv, view(w, _WEIGHT_AXES), view(b if pool else None, _BIAS_AXES),
              view(out, _IMAGE_AXES), view(arg, _IMAGE_AXES)]
-    err = lib.mft_conv_fwd(*[ctypes.byref(v) for v in views], ctypes.byref(a),
-                           device.index, stream_of(x))
-    check(lib, err, "conv_fwd", "client_conv")
+    entry = "mft_conv_fwd" if kernel == "conv_fwd" else "mft_conv_fwd_tc"
+    err = getattr(lib, entry)(*[ctypes.byref(v) for v in views],
+                              ctypes.byref(a), device.index, stream_of(x))
+    check(lib, err, kernel, "client_conv")
+    count(kernel)
     conv_fwd.launches += 1
     return out, arg
 
 
 conv_fwd.launches = 0
 
+#: csrc/client_conv.cu's TcKind: no tensor-core kernel, conv2's (2: the
+#: stem's)
+_TC_NONE, _TC_CONV2 = 0, 1
+
+
+def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView) -> str:
+    """The forward kernel for ``a``: ``conv_fwd`` for f32 and for the raw
+    mode; for the pooled bf16 forward the tensor-core one, which takes a 3x3
+    SAME stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14),
+    ``conv2_fwd_tc``, or a stem's (1-8 -> 32 channels, ``x`` in f32),
+    ``stem_fwd_tc``. Any other pooled bf16 call raises: it never drops to
+    the CUDA-core kernel."""
+    if a.g.cdt == DTYPE_CODES[torch.float32] or not a.g.pool:
+        return "conv_fwd"
+    kind = lib.mft_conv_fwd_tc_kind(ctypes.byref(a), ctypes.byref(x))
+    if kind == _TC_NONE:
+        g = a.g
+        raise ValueError(
+            f"conv_fwd pooled in bf16 runs on a tensor-core kernel, which "
+            f"takes a 3x3 SAME stride-1 conv2 (32 -> 64 at 14x14) or stem "
+            f"(1-8 -> 32, input in f32); got {g.cin} -> {g.cout} at "
+            f"{g.h}x{g.w}, k {g.k}, stride {g.stride}, pad {g.pad}, x dtype "
+            f"code {x.dtype}")
+    return "conv2_fwd_tc" if kind == _TC_CONV2 else "stem_fwd_tc"
+
 
 # --------------------------------------------------------------- backward
-
-#: launches of each backward kernel of ``csrc/client_conv.cu``, by name. In
-#: f32 (the checking mode) the wrappers launch the CUDA-core kernels
-#: ``conv_wgrad`` and ``conv_dgrad``; in bf16 the tensor-core kernels
-#: ``conv_wgrad_tc`` (conv2's and the stem's instantiations) and
-#: ``conv_dgrad_tc``. Each wrapper's ``.launches`` counts both of its own.
-KERNEL_LAUNCHES = dict.fromkeys(
-    ("conv_wgrad", "conv_wgrad_tc", "conv_dgrad", "conv_dgrad_tc"), 0)
-#: mft_conv_tc_kind's answer for a call no tensor-core kernel takes
-#: (csrc/client_conv.cu's TcKind)
-_TC_NONE = 0
-
-
-def reset_kernel_launches() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
 
 
 def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
@@ -276,7 +294,7 @@ def conv_wgrad(x: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
     For the stem this is the fold of w4's four copies into the 3x3 kernel.
     f32 runs the CUDA-core kernel, bf16 the tensor-core one (see
     :func:`_kernel_for`); ``conv_wgrad.launches`` counts the launches of
-    both, :data:`KERNEL_LAUNCHES` each one's."""
+    both, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_wgrad_plain(x, dp, h, arg, gw, gb, stride=stride, pad=pad,
                                 dtype=dtype)
@@ -294,7 +312,7 @@ def conv_wgrad(x: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
                                         ctypes.byref(a), device.index,
                                         stream_of(x))
     check(lib, err, kernel, "client_conv")
-    KERNEL_LAUNCHES[kernel] += 1
+    count(kernel)
     conv_wgrad.launches += 1
 
 
@@ -323,7 +341,7 @@ def conv_dgrad(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
     """Input gradient [C, B, C_in, H, W] (in ``dtype``) of a pooled
     stride-1 conv layer with weights ``w``. f32 runs the CUDA-core kernel,
     bf16 the tensor-core one (conv2's shape only); ``conv_dgrad.launches``
-    counts the launches of both, :data:`KERNEL_LAUNCHES` each one's."""
+    counts the launches of both, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if dp.device.type == "cpu":
         return conv_dgrad_plain(dp, h, arg, w, in_hw, pad=pad, dtype=dtype,
                                 channels_last=channels_last)
@@ -341,7 +359,7 @@ def conv_dgrad(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
                                         ctypes.byref(a), device.index,
                                         stream_of(dp))
     check(lib, err, kernel, "client_conv")
-    KERNEL_LAUNCHES[kernel] += 1
+    count(kernel)
     conv_dgrad.launches += 1
     return dx
 

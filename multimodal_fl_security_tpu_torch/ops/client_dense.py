@@ -26,6 +26,7 @@ from multimodal_fl_security_tpu_torch.ops._launch import (
     DTYPE_CODES,
     MftView,
     check,
+    count,
     require_cuda,
     stream_of,
     view,
@@ -42,6 +43,8 @@ def _library() -> ctypes.CDLL:
     i = ctypes.c_int
     lib.mft_dense_fwd.argtypes = [p] * 4 + [i] * 7 + [ctypes.c_void_p]
     lib.mft_dense_fwd.restype = i
+    lib.mft_dense_fwd_tc.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_void_p]
+    lib.mft_dense_fwd_tc.restype = i
     lib.mft_dense_bwd.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_void_p]
     lib.mft_dense_bwd.restype = i
     lib.mft_client_dense_error_string.argtypes = [i]
@@ -74,22 +77,38 @@ def dense_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               relu: bool = False, wdtype: torch.dtype = torch.float32,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``y = x W^T + b`` per client, then relu if asked: [C, rows, F] in
-    ``out_dtype``. ``dense_fwd.launches`` counts kernel launches."""
+    ``out_dtype``. ``wdtype`` f32 runs the CUDA-core kernel ``dense_fwd``;
+    bf16 the tensor-core kernel ``dense_fwd_tc``, which takes ``x`` in bf16
+    only (any other x raises: it never drops to the CUDA-core kernel).
+    ``dense_fwd.launches`` counts the launches of both,
+    :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return dense_fwd_plain(x, w, b, relu=relu, wdtype=wdtype,
                                out_dtype=out_dtype)
     _check(x, w, b)
     device = require_cuda(x, w, b)
+    tc = wdtype == torch.bfloat16
+    if tc and x.dtype != torch.bfloat16:
+        raise ValueError(f"dense_fwd with wdtype bf16 runs on the tensor-core "
+                         f"kernel, which takes x in bf16; got {x.dtype}")
     c, rows, k = x.shape
     f = w.shape[1]
     y = torch.empty((c, rows, f), dtype=out_dtype, device=device)
     lib = _library()
     views = [view(x, _MAT_AXES), view(w, _MAT_AXES), view(b, _BIAS_AXES),
              view(y, _MAT_AXES)]
-    err = lib.mft_dense_fwd(*[ctypes.byref(v) for v in views], c, rows, k, f,
-                            int(relu), DTYPE_CODES[wdtype], device.index,
-                            stream_of(x))
-    check(lib, err, "dense_fwd", "client_dense")
+    refs = [ctypes.byref(v) for v in views]
+    if tc:
+        kernel = "dense_fwd_tc"
+        err = lib.mft_dense_fwd_tc(*refs, c, rows, k, f, int(relu),
+                                   device.index, stream_of(x))
+    else:
+        kernel = "dense_fwd"
+        err = lib.mft_dense_fwd(*refs, c, rows, k, f, int(relu),
+                                DTYPE_CODES[wdtype], device.index,
+                                stream_of(x))
+    check(lib, err, kernel, "client_dense")
+    count(kernel)
     dense_fwd.launches += 1
     return y
 

@@ -9,6 +9,9 @@ by ``tests/test_fused_train.py``), one step's per-layer gradients against
 ``packed_ce``, and the clip / momentum / update against
 ``packed_sgd_step``. Tolerances: rtol 1e-4 and atol 1e-5 for values summed
 in another order, 1e-6 for the loss and the optimizer's elementwise step.
+In bf16, the plain forward chain the tensor-core kernels are held to
+against ``forward_impl``'s bf16 mirror, within the roundings JAX adds (see
+``test_bf16_forward_oracle_matches_jax_mirror``).
 
 The ``cuda`` cases hold each hand-written kernel to its plain version on the
 card, at small ragged shapes and at the main path's shapes, on planted ties,
@@ -22,8 +25,8 @@ import torch
 
 from multimodal_fl_security_tpu_torch.models import create_model
 from multimodal_fl_security_tpu_torch.models.from_jax import params_from_jax
+from multimodal_fl_security_tpu_torch.ops._launch import KERNEL_LAUNCHES
 from multimodal_fl_security_tpu_torch.ops.client_conv import (
-    KERNEL_LAUNCHES,
     client_stem_conv,
     client_stem_conv_plain,
     conv_dgrad,
@@ -174,6 +177,93 @@ def test_stem_and_conv2_forward_match_jax(case):
                                np.stack(h1_want), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(h3.permute(0, 1, 3, 4, 2).numpy(),
                                np.stack(h3_want), rtol=1e-4, atol=1e-5)
+
+
+def packed_map(a, groups, ch, hw):
+    """A packed [B, rows, groups * ch] map of fused_train.py's layout (row
+    = (i, jq), lane = (g, ch), column j = jq * groups + g: groups 4 for the
+    14x14 maps, 2 for the pooled map) as numpy [B, ch, hw, hw] f32."""
+    a = np.asarray(a.astype(np.float32)).reshape(a.shape[0], -1, 4, groups,
+                                                 ch)
+    a = a.reshape(a.shape[0], a.shape[1], 4 * groups, ch)[:, :hw, :hw]
+    return a.transpose(0, 3, 1, 2)
+
+
+def window_gap(z):
+    """[..., 4] window values -> the gap between the two largest."""
+    top = np.sort(z, axis=-1)
+    return top[..., 3] - top[..., 2]
+
+
+def test_bf16_forward_oracle_matches_jax_mirror(case):
+    """The plain bf16 chain the kernels are held to (the stem and conv2
+    through ``conv_fwd_plain``, fc1 and fc2 through ``dense_fwd_plain``:
+    ``step_grads``'s forward on the CPU) against the JAX package's
+    ``forward_impl`` in bf16 (``mirror_forward``'s, captured through its
+    dot callables). JAX rounds each tap partial and each running sum to
+    bf16 (the stem's 4 taps per group, conv2's 9, fc1's 28 row partials;
+    ``fused_train.py:384-394, 409-410``); the port rounds once from f32 sums.
+    Measured on this seed: the pooled maps differ by at most 2 bf16 ulps
+    (0.0625 at values up to 7.6), the logits by 0.077 at values up to 9.8.
+    Tolerance: 2e-2 of each map's largest value, compared where JAX's window
+    gap exceeds it (elsewhere the two may pick another position of a near
+    tie; their values then still agree), and 3e-2 of the largest logit."""
+    jax, jnp, _, ft, _ = jax_side()
+    bf16 = torch.bfloat16
+    views = case["model"].layout(CIN).views(case["params"])
+    h1, _ = conv_fwd(nchw(case["images"]), views["conv1.weight"],
+                     views["conv1.bias"], dtype=bf16, channels_last=True)
+    h3, _ = conv_fwd(h1, views["conv2.weight"], views["conv2.bias"],
+                     dtype=bf16)
+    h4 = dense_fwd(h3.view(C, B, -1), views["fc1.weight"], views["fc1.bias"],
+                   relu=True, wdtype=bf16, out_dtype=bf16)
+    logits = dense_fwd(h4, views["fc2.weight"], views["fc2.bias"])
+    assert logits.dtype == torch.float32 and logits.shape == (C, B, 10)
+    for c in range(C):
+        pk = ft.pack_params(client_tree(case["stacked"], c))
+        xblk = ft.pack_blocks(jnp.asarray(case["blocks"][c]))
+        dots, pooled = [], []
+
+        def dot3d(a, w):
+            dots.append((a, ft._dot3d(a, w)))
+            return dots[-1][1]
+
+        def bdot(a, w):
+            pooled.append(jnp.swapaxes(a, 0, 1))  # h3 [B, 28, 128]
+            return ft._bdot(a, w)
+
+        want = ft.forward_impl(pk, xblk, compute_dtype=jnp.bfloat16,
+                               dot3d=dot3d, bdot=bdot)
+        assert bool(jnp.array_equal(
+            want, ft.mirror_forward(pk, xblk, compute_dtype=jnp.bfloat16)))
+        # The stem's four groups (4 taps each) and conv2's 9 taps, summed in
+        # bf16 in forward_impl's order; conv2's tap 4 reads h1 unshifted.
+        zs = []
+        for g in range(4):
+            acc = dots[4 * g][1]
+            for t in range(1, 4):
+                acc = acc + dots[4 * g + t][1]
+            zs.append(packed_map(acc, 4, 32, 14))
+        z2 = jnp.zeros(dots[16][1].shape, jnp.bfloat16)
+        for _, out in dots[16:25]:
+            z2 = z2 + out
+        z2 = packed_map(z2, 4, 64, 14)
+        gaps = {
+            "h1": window_gap(np.stack(zs, axis=-1)),
+            "h3": window_gap(z2.reshape(B, 64, 7, 2, 7, 2).transpose(
+                0, 1, 2, 4, 3, 5).reshape(B, 64, 7, 7, 4)),
+        }
+        maps = {"h1": (h1[c], packed_map(dots[20][0], 4, 32, 14)),
+                "h3": (h3[c], packed_map(pooled[0], 2, 64, 7))}
+        for name, (got, jmap) in maps.items():
+            tol = 2e-2 * float(np.abs(jmap).max())
+            live = gaps[name] > tol
+            assert live.mean() > 0.8, name  # most windows are compared
+            np.testing.assert_allclose(got.float().numpy()[live], jmap[live],
+                                       rtol=0, atol=tol, err_msg=name)
+        jl = np.asarray(want)[:, :10]
+        np.testing.assert_allclose(logits[c].numpy(), jl, rtol=0,
+                                   atol=3e-2 * float(np.abs(jl).max()))
 
 
 # ---------------------------------------------------------------- gradients
@@ -357,15 +447,19 @@ def test_conv_fwd_kernel_matches_plain(cuda, layer, c, b, cin, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layer", ["stem", "conv2"])
-def test_conv_fwd_kernel_planted_ties(cuda, layer):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_fwd_kernel_planted_ties(cuda, layer, dtype):
     """Integer operands make every sum exact: interior windows tie in all
-    four positions, and both versions take the first, (0, 0)."""
+    four positions, and both versions take the first, (0, 0). bf16 runs the
+    tensor-core kernels; the plain version runs without cuDNN, whose
+    forward is not exact on integers."""
     x, w, bias = conv_case(cuda, layer, 3, 4, 1)
     x = torch.ones_like(x)
     w = torch.randint(-2, 3, w.shape, generator=cuda, device="cuda").float()
     bias = torch.zeros_like(bias).add_(100.0)  # keep the relu open
-    out, arg = conv_fwd(x, w, bias)
-    want, warg = conv_fwd_plain(x, w, bias)
+    out, arg = conv_fwd(x, w, bias, dtype=dtype)
+    with torch.backends.cudnn.flags(enabled=False):
+        want, warg = conv_fwd_plain(x, w, bias, dtype=dtype)
     torch.cuda.synchronize()
     assert torch.equal(out, want) and torch.equal(arg, warg)
     assert not bool(arg[..., 1:-1, 1:-1].any())
@@ -453,17 +547,22 @@ TC_CASES = [("stem", 1), ("stem", 8), ("conv2", 32)]
 def test_tc_kernels_exact_on_integers(cuda, layer, cin, main_layout, drop):
     """bf16 runs the tensor-core kernels: on exact operands they equal the
     plain versions bitwise, whatever order either sums in, at the ragged
-    C=3, B=5, in both layouts, with and without dropped gradients. The
-    plain versions run without cuDNN here: its f32 weight gradient at
-    conv2's grouped shape is not exact on integers (one bf16 ulp off a
-    338, measured on the card), PyTorch's own im2col and GEMM are."""
+    C=3, B=5, in both layouts, with and without dropped gradients: the
+    forward (pooled map and argmax) and the gradients. The plain versions
+    run without cuDNN here: its f32 weight gradient at conv2's grouped
+    shape is not exact on integers (one bf16 ulp off a 338, measured on the
+    card), PyTorch's own im2col and GEMM are."""
     bf16 = torch.bfloat16
     x, w, bias, h, arg, dp = integer_case(cuda, layer, 3, 5, cin,
                                           main_layout, drop)
+    maps_nhwc = h.stride(2) == 1
+    fwd = conv_fwd(x, w, bias, dtype=bf16, channels_last=maps_nhwc)
     got = [torch.full_like(w, float("nan")), torch.full_like(bias, 0.5)]
     want = [torch.empty_like(w), torch.empty_like(bias)]
     conv_wgrad(x, dp, h, arg, *got, dtype=bf16)
     with torch.backends.cudnn.flags(enabled=False):
+        fwd_want = conv_fwd_plain(x, w, bias, dtype=bf16,
+                                  channels_last=maps_nhwc)
         conv_wgrad_plain(x, dp, h, arg, *want, dtype=bf16)
         dx_want = conv_dgrad_plain(dp, h, arg, w, (14, 14), dtype=bf16) \
             if layer == "conv2" else None
@@ -471,22 +570,43 @@ def test_tc_kernels_exact_on_integers(cuda, layer, cin, main_layout, drop):
         dx = conv_dgrad(dp, h, arg, w, (14, 14), dtype=bf16,
                         channels_last=True)
     torch.cuda.synchronize()
+    assert fwd[0].stride() == fwd_want[0].stride()
+    assert torch.equal(fwd[0], fwd_want[0]) and torch.equal(fwd[1],
+                                                            fwd_want[1])
     assert float(want[0].abs().max()) > 100  # sums large enough to test
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if layer == "conv2":
         assert torch.equal(dx, dx_want)
 
 
+def dense_case(gen, c, rows, k, f, dtype, ints=False):
+    """x [C, rows, K] (in dtype, post-relu), w [C, F, K] and b [C, F] f32;
+    ``ints``: small integers, so every product and sum is exact."""
+    if ints:
+        x = torch.randint(0, 4, (c, rows, k), generator=gen, device="cuda")
+        w = torch.randint(-2, 3, (c, f, k), generator=gen, device="cuda")
+        b = torch.randint(-2, 3, (c, f), generator=gen, device="cuda")
+        return x.to(dtype), w.float(), b.float()
+    x = torch.relu(torch.randn((c, rows, k), generator=gen, device="cuda"))
+    w = torch.randn((c, f, k), generator=gen, device="cuda") / k ** 0.5
+    b = torch.randn((c, f), generator=gen, device="cuda")
+    return x.to(dtype), w, b
+
+
 @pytest.mark.cuda
 def test_kernel_choice_follows_the_dtype(cuda):
-    """f32 launches the CUDA-core kernels, bf16 the tensor-core ones; each
-    kernel has its own count, the wrappers count both."""
+    """f32 launches the CUDA-core kernels, bf16 the tensor-core ones (the
+    raw mode, K3, stays on conv_fwd in both); each kernel has its own count,
+    the wrappers count all of theirs."""
     counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         for layer, cin in TC_CASES:
             x, w, bias, h, arg, dp = pooled_case(cuda, layer, 3, 5, cin,
                                                  dtype)
             before = dict(KERNEL_LAUNCHES)
+            fwd_before = conv_fwd.launches
+            conv_fwd(x, w, bias, dtype=dtype)
+            assert conv_fwd.launches == fwd_before + 1
             wgrad_before = conv_wgrad.launches
             conv_wgrad(x, dp, h, arg, torch.empty_like(w),
                        torch.empty_like(bias), dtype=dtype)
@@ -497,13 +617,32 @@ def test_kernel_choice_follows_the_dtype(cuda):
                 assert conv_dgrad.launches == dgrad_before + 1
             counts[dtype, layer, cin] = {
                 k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+        before = dict(KERNEL_LAUNCHES)
+        x4 = torch.randn((3, 4, 28 * 28 * 8), generator=cuda, device="cuda")
+        w4 = torch.randn((3, 4, 4, 8, 128), generator=cuda, device="cuda")
+        client_stem_conv(x4.to(dtype), w4.to(dtype))
+        counts[dtype, "raw", 8] = {
+            k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+        before = dict(KERNEL_LAUNCHES)
+        dense_fwd(*dense_case(cuda, 3, 7, 100, 37, dtype), wdtype=dtype)
+        counts[dtype, "dense"] = {
+            k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
     torch.cuda.synchronize()
-    for (dtype, layer, _), got in counts.items():
+    zero = dict.fromkeys(KERNEL_LAUNCHES, 0)
+    for dtype in (torch.float32, torch.bfloat16):
         tc = dtype == torch.bfloat16
-        dgrad = int(layer == "conv2")
-        assert got == {"conv_wgrad": int(not tc), "conv_wgrad_tc": int(tc),
-                       "conv_dgrad": dgrad * int(not tc),
-                       "conv_dgrad_tc": dgrad * int(tc)}
+        for layer, cin in TC_CASES:
+            dgrad = int(layer == "conv2")
+            fwd_tc = "conv2_fwd_tc" if layer == "conv2" else "stem_fwd_tc"
+            want = {**zero, "conv_wgrad": int(not tc),
+                    "conv_wgrad_tc": int(tc),
+                    "conv_dgrad": dgrad * int(not tc),
+                    "conv_dgrad_tc": dgrad * int(tc)}
+            want["conv_fwd" if not tc else fwd_tc] = 1
+            assert counts[dtype, layer, cin] == want, (dtype, layer, cin)
+        assert counts[dtype, "raw", 8] == {**zero, "conv_fwd": 1}
+        assert counts[dtype, "dense"] == {**zero, "dense_fwd": int(not tc),
+                                          "dense_fwd_tc": int(tc)}
 
 
 @pytest.mark.cuda
@@ -514,6 +653,7 @@ def test_tc_kernels_refuse_other_bf16_calls(cuda):
     x, w, bias, h, arg, dp = pooled_case(cuda, "conv2", 3, 5, 32, bf16)
     sx, sw, sb, sh, sarg, sdp = pooled_case(cuda, "stem", 3, 5, 1, bf16)
     gw, gb = torch.empty_like(w), torch.empty_like(bias)
+    dx, dw, db = dense_case(cuda, 3, 7, 100, 37, torch.float32)
     calls = {
         "conv2 at 16 input channels": lambda: conv_wgrad(
             x[:, :, :16], dp, h, arg, gw[:, :, :16], gb, dtype=bf16),
@@ -529,31 +669,52 @@ def test_tc_kernels_refuse_other_bf16_calls(cuda):
             sx.to(bf16), sdp, sh, sarg, sw, sb, dtype=bf16),
         "the stem's input gradient": lambda: conv_dgrad(
             sdp, sh, sarg, sw, (28, 28), dtype=bf16),
+        "forward: conv2 at 16 input channels": lambda: conv_fwd(
+            x[:, :, :16], w[:, :, :16], bias, dtype=bf16),
+        "forward: stride 2": lambda: conv_fwd(x, w, bias, stride=2,
+                                              dtype=bf16),
+        "forward: a stem of 64 outputs": lambda: conv_fwd(
+            sx, torch.cat([sw, sw], 1), torch.cat([sb, sb], 1), dtype=bf16),
+        "forward: a stem of bf16 input": lambda: conv_fwd(
+            sx.to(bf16), sw, sb, dtype=bf16),
+        "forward: a 5x5 stem": lambda: conv_fwd(
+            sx, torch.zeros((3, 32, 1, 5, 5), device="cuda"), sb, pad=2,
+            dtype=bf16),
+        "fc1 forward of an f32 x": lambda: dense_fwd(dx, dw, db,
+                                                     wdtype=bf16),
     }
-    before = (dict(KERNEL_LAUNCHES), conv_wgrad.launches,
-              conv_dgrad.launches)
+
+    def counted():
+        return (dict(KERNEL_LAUNCHES), conv_fwd.launches,
+                conv_wgrad.launches, conv_dgrad.launches, dense_fwd.launches)
+
+    before = counted()
     for what, call in calls.items():
         with pytest.raises(ValueError, match="tensor-core"):
             call()
-    assert (dict(KERNEL_LAUNCHES), conv_wgrad.launches,
-            conv_dgrad.launches) == before
+    assert counted() == before
 
 
-DENSE = [(3, 7, 100, 37), (100, 32, 3136, 128), (100, 32, 128, 10)]
+DENSE = [(3, 7, 100, 37, False), (100, 32, 3136, 128, False),
+         (100, 32, 128, 10, False), (3, 7, 100, 37, True),
+         (100, 32, 3136, 128, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,rows,k,f", DENSE)
+@pytest.mark.parametrize("c,rows,k,f,ints", DENSE)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_dense_kernels_match_plain(cuda, c, rows, k, f, dtype):
-    x = torch.relu(torch.randn((c, rows, k), generator=cuda,
-                               device="cuda")).to(dtype)
-    w = torch.randn((c, f, k), generator=cuda, device="cuda") / k ** 0.5
-    b = torch.randn((c, f), generator=cuda, device="cuda")
+def test_dense_kernels_match_plain(cuda, c, rows, k, f, ints, dtype):
+    """Within one rounding of the plain versions on random operands,
+    bitwise on small integers (every sum exact; bf16 runs the forward on the
+    tensor-core kernel, with K split over a cluster), and two calls bitwise
+    equal."""
+    x, w, b = dense_case(cuda, c, rows, k, f, dtype, ints)
     y = dense_fwd(x, w, b, relu=True, wdtype=dtype, out_dtype=dtype)
-    close(y, dense_fwd_plain(x, w, b, relu=True, wdtype=dtype,
-                             out_dtype=dtype), dtype, scale=4.0)
-    dz = torch.randn((c, rows, f), generator=cuda, device="cuda").to(dtype)
+    y_again = dense_fwd(x, w, b, relu=True, wdtype=dtype, out_dtype=dtype)
+    y_want = dense_fwd_plain(x, w, b, relu=True, wdtype=dtype,
+                             out_dtype=dtype)
+    dz = torch.randn((c, rows, f), generator=cuda, device="cuda")
+    dz = (dz.round() if ints else dz).to(dtype)
     outs = []
     for fn in (dense_bwd, dense_bwd, dense_bwd_plain):
         gw, gb = torch.empty_like(w), torch.empty_like(b)
@@ -561,6 +722,12 @@ def test_dense_kernels_match_plain(cuda, c, rows, k, f, dtype):
                 dx_dtype=dtype)
         outs.append((gw, gb, dx))
     torch.cuda.synchronize()
+    assert torch.equal(y, y_again)
+    if ints:
+        assert float(y_want.float().abs().max()) > 20  # not all clipped
+        assert torch.equal(y, y_want)
+    else:
+        close(y, y_want, dtype, scale=4.0)
     for got, rep, ref in zip(*outs):
         assert torch.equal(got, rep)
         close(got, ref, dtype, scale=float(ref.float().abs().max()))

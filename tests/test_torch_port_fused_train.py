@@ -19,6 +19,10 @@ import torch
 
 from multimodal_fl_security_tpu_torch.models import create_model
 from multimodal_fl_security_tpu_torch.models.from_jax import params_from_jax
+from multimodal_fl_security_tpu_torch.ops._launch import (
+    kernel_launches,
+    reset_kernel_launches,
+)
 from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
     LAUNCHES_PER_STEP,
     STEP_KERNELS,
@@ -193,9 +197,11 @@ def test_kernel_path_bf16_is_reproducible_and_counted():
                                 device="cuda")
     for fn in STEP_KERNELS:
         fn.launches = 0
+    reset_kernel_launches()
     kw = dict(learning_rate=0.05, local_epochs=2)
     out = fused_local_train(params, x, labels, mask, **kw)
     launches = {fn.__name__: fn.launches for fn in STEP_KERNELS}
+    per_kernel = kernel_launches()
     again = fused_local_train(params, x, labels, mask, **kw)
     ref = mirror_local_train(params, x, labels, mask, **kw)
     torch.cuda.synchronize()
@@ -203,6 +209,12 @@ def test_kernel_path_bf16_is_reproducible_and_counted():
     assert launches == {fn.__name__: k * steps
                         for fn, k in STEP_KERNELS.items()}
     assert sum(launches.values()) == LAUNCHES_PER_STEP * steps
+    # bf16: the forward and the conv gradients on the tensor-core kernels,
+    # fc2 (f32 weights) on the CUDA-core dense_fwd.
+    assert per_kernel == {
+        "conv_fwd": 0, "conv2_fwd_tc": steps, "stem_fwd_tc": steps,
+        "conv_wgrad": 0, "conv_wgrad_tc": 2 * steps, "conv_dgrad": 0,
+        "conv_dgrad_tc": steps, "dense_fwd": steps, "dense_fwd_tc": steps}
     assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
     # bf16 rounds at the same places; near ties may route differently.
     assert float((out - ref).abs().max()) < 1e-2
