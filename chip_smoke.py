@@ -12,12 +12,16 @@ paths and fails loudly on anything wrong. Phases, in order:
 2. Build: compiles every ``csrc/*.cu`` with nvcc for sm_90a, one process
    each, all at once (timed; registers, shared memory and spills); requires
    HMMA/HGMMA instructions in the SASS of every tensor-core kernel
-   (``TC_KERNELS``, each instantiation: the bf16 forward, conv gradients
-   and fc1 forward).
-3. Gram kernel against its plain version at the main path's
-   [100, 421,642] and at ragged shapes. Requires max|G_kernel - G_plain|
-   <= 1e-5 * max|G_plain|, the same Krum pick from both, and two kernel
-   calls bitwise equal; times both with CUDA events.
+   (``TC_KERNELS``, each instantiation: the Gram's wgmma kernel, the bf16
+   forward, the conv gradients and fc1's forward and backward).
+3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
+   the main path's [100, 421,642], with its first 20 rows scaled x10 (the
+   scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
+   max|G_kernel - G_plain| <= 1e-5 * max|G_plain|, the same Krum pick from
+   both, two kernel calls bitwise equal and G symmetric; prints both
+   errors against an f64 Gram; times kernel and plain with CUDA events at
+   [100, 421,642] and [100, 8M] beside ``torch.mm`` of the centered U, and
+   ``torch.mean``'s share of ``gram()``.
 4. Sorted-reduce kernel against its plain version (``torch.sort``, then a
    row pick or a mean) at [100, 421,642], at ragged shapes from [1, 1000]
    to [1024, 2049], and at [100, 8,000,000], in both modes (trim 10 at
@@ -43,8 +47,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    and backward; CE; SGD at [100, 421,642]) and K3's raw stem conv at
    [100, 32, 28*28*8] x [100, 4, 4, 8, 128], in f32 with TF32 off (max
    |kernel - plain| <= 1e-5 * max|plain|) and in bf16 (<= 1e-2 * max|plain|,
-   one rounding apart; the forward convs, fc1's forward and the conv
-   gradients on the tensor-core kernels; each pooled conv's argmax equal
+   one rounding apart; the forward convs, fc1's forward and backward and
+   the conv gradients on the tensor-core kernels; each pooled conv's argmax equal
    to the plain version's wherever its window gap exceeds that tolerance,
    and agreeing on > 0.99 of all outputs),
    timed in turns with CUDA events beside the one PyTorch call that
@@ -53,12 +57,15 @@ paths and fails loudly on anything wrong. Phases, in order:
    in both dtypes (CUDA-core in f32, tensor-core in bf16), the stem's
    forward and fc1's and fc2's forward in the bf16 path's kernels, the rest
    in bf16, the stem's weight gradient with its library call and bound;
+   fc1's backward beside the two ``torch.bmm`` and the sum that compute
+   the same outputs (a reference, not a single library call);
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
    ``mirror_local_train`` within 1e-4 at f32, every conv and dense launch
    on the CUDA-core kernels); (c) ``run_bench()`` at full width in bf16:
    finite parameters, 12 launches per step x 38 steps, by kernel 38 each
-   on ``conv2_fwd_tc``, ``stem_fwd_tc``, ``dense_fwd_tc`` and fc2's
-   ``dense_fwd``, 76 + 38 on the gradients' tensor-core kernels, two calls
+   on ``conv2_fwd_tc``, ``stem_fwd_tc``, ``dense_fwd_tc``,
+   ``dense_bwd_tc`` and fc2's ``dense_fwd`` and ``dense_bwd``, 76 + 38 on
+   the conv gradients' tensor-core kernels, two calls
    bitwise equal, FedAvg test accuracy > 0.5; prints the kernel path's,
    the mirror's and the engine trainer's ms per call.
 8. The Mosaic probe set (K5): ``benchmarks/mosaic_probe.run_probes()``,
@@ -103,6 +110,8 @@ SORT_SOURCE = "multimodal_fl_security_tpu_torch/csrc/sorted_reduce.cu"
 SORT_REPLACES = "multimodal_fl_security_tpu/ops/pallas_kernels.py:182"
 MAIN_SHAPE = (100, 421_642)
 RAGGED_SHAPES = [(7, 1000), (65, 4099), (130, 3001)]
+GRAM_BIG_SHAPE = (100, 8_000_000)  # the aggregation cells' scale
+SCALED_ROWS = 20  # rows scaled x10 in one Gram input (R3's attack)
 SORT_RAGGED_SHAPES = [(1, 1000), (2, 1000), (7, 1000), (65, 4099),
                       (128, 3001), (130, 3001), (1024, 2049)]
 SORT_BIG_SHAPE = (100, 8_000_000)  # the JAX record's (docs/performance.md)
@@ -125,6 +134,7 @@ MIN_ACCURACY = {"R1": 0.5, "R2": 0.5}
 #: H100 SXM data sheet, dense, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12  # the tensor cores' TF32 rate (the Gram's 3xTF32)
 #: each local-training kernel's source, by its wrapper's name prefix
 FUSED_SOURCES = {prefix: f"multimodal_fl_security_tpu_torch/csrc/{src}.cu"
                  for prefix, src in (("conv", "client_conv"),
@@ -163,9 +173,10 @@ PROBE_KERNELS = {
                       "ad_mask_relu_max"),
 }
 #: every tensor-core kernel that phase 2 requires HMMA instructions in
-TC_KERNELS = ("conv2_fwd_tc_kernel", "stem_fwd_tc_kernel",
+TC_KERNELS = ("gram_tc_kernel", "conv2_fwd_tc_kernel", "stem_fwd_tc_kernel",
               "conv2_wgrad_tc_kernel", "stem_wgrad_tc_kernel",
-              "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel")
+              "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
+              "dense_bwd_tc_kernel")
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
 DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
 
@@ -227,12 +238,12 @@ def phase_build() -> None:
     print(f"[build] {len(modules)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
     check_tensor_cores([p for p, _, _ in builds
-                        if p.name.startswith(("libclient_conv-",
+                        if p.name.startswith(("libgram-", "libclient_conv-",
                                               "libclient_dense-"))])
 
 
 def check_tensor_cores(libs) -> None:
-    """``cuobjdump -sass`` of the conv and dense libraries: every
+    """``cuobjdump -sass`` of the Gram, conv and dense libraries: every
     tensor-core kernel (``*_tc_kernel``, each instantiation) holds HMMA
     (mma.sync) or HGMMA (wgmma) instructions, and each of TC_KERNELS has
     one."""
@@ -296,66 +307,108 @@ def time_ms(fn, u: torch.Tensor, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel() -> dict:
-    from multimodal_fl_security_tpu_torch.models import create_model, init_model
+def check_gram(u: torch.Tensor) -> float:
+    """Kernel against plain on ``u``; returns max|kernel - plain|."""
     from multimodal_fl_security_tpu_torch.ops.gram import gram, gram_plain
 
-    gen = torch.Generator("cuda").manual_seed(0)
-    # Main path's shape and kind of input: near-identical parameter vectors.
-    base = init_model(create_model("simple_cnn"), in_channels=1, seed=0,
-                      device="cuda")
-    inputs = [base + 0.01 * torch.randn(MAIN_SHAPE, generator=gen,
-                                        device="cuda")]
-    inputs += [torch.randn(s, generator=gen, device="cuda")
-               for s in RAGGED_SHAPES]
-    main_err = None
-    for u in inputs:
-        g = gram(u)
-        g_again = gram(u)
-        g_plain = gram_plain(u)
-        g_f64 = gram_plain(u.double())
-        torch.cuda.synchronize()
-        err = float((g - g_plain).abs().max())
-        scale = float(g_plain.abs().max())
-        err_f64 = float((g.double() - g_f64).abs().max())
-        plain_f64 = float((g_plain.double() - g_f64).abs().max())
-        print(f"[kernel] gram {tuple(u.shape)}: max|kernel-plain| {err:.6g} "
-              f"(tolerance {REL_TOL} * max|G| = {REL_TOL * scale:.6g}); "
-              f"vs f64: kernel {err_f64:.6g}, plain {plain_f64:.6g}")
-        if not err <= REL_TOL * scale:
-            raise AssertionError(
-                f"gram kernel disagrees at {tuple(u.shape)}: {err} > "
-                f"{REL_TOL} * {scale}")
-        if not torch.equal(g, g_again):
-            raise AssertionError(f"gram kernel not bitwise reproducible at "
-                                 f"{tuple(u.shape)}")
-        if u.shape[0] >= 5 and krum_pick(g) != krum_pick(g_plain):
-            raise AssertionError(f"Krum picks differ at {tuple(u.shape)}")
-        if main_err is None:
-            main_err = err
+    g = gram(u)
+    g_again = gram(u)
+    g_plain = gram_plain(u)
+    torch.cuda.synchronize()
+    shape = tuple(u.shape)
+    err = float((g - g_plain).abs().max())
+    scale = float(g_plain.abs().max())
+    g_f64 = gram_plain(u.double())
+    err_f64 = float((g.double() - g_f64).abs().max())
+    plain_f64 = float((g_plain.double() - g_f64).abs().max())
+    del g_f64
+    print(f"[kernel] gram {shape}: max|kernel-plain| {err:.6g} (tolerance "
+          f"{REL_TOL} * max|G| = {REL_TOL * scale:.6g}); vs f64: kernel "
+          f"{err_f64:.6g}, plain {plain_f64:.6g}")
+    if not err <= REL_TOL * scale:
+        raise AssertionError(f"gram kernel disagrees at {shape}: {err} > "
+                             f"{REL_TOL} * {scale}")
+    if not torch.equal(g, g_again):
+        raise AssertionError(f"gram kernel not bitwise reproducible at "
+                             f"{shape}")
+    if not torch.equal(g, g.T):
+        raise AssertionError(f"gram kernel not symmetric at {shape}")
+    if u.shape[0] >= 5 and krum_pick(g) != krum_pick(g_plain):
+        raise AssertionError(f"Krum picks differ at {shape}")
+    return err
 
-    u = inputs[0]
-    # In turns: plain, kernel, kernel, plain.
-    plain_a = time_ms(gram_plain, u)
-    kern_a = time_ms(gram, u)
-    kern_b = time_ms(gram, u)
-    plain_b = time_ms(gram_plain, u)
-    ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+
+def gram_times(u: torch.Tensor, iters: int) -> tuple:
+    """(kernel ms, plain ms, torch.mm of the centered U ms, torch.mean ms):
+    kernel and plain in turns (plain, kernel, kernel, plain)."""
+    from multimodal_fl_security_tpu_torch.ops.gram import gram, gram_plain
+
+    plain_a = time_ms(gram_plain, u, iters)
+    kern_a = time_ms(gram, u, iters)
+    kern_b = time_ms(gram, u, iters)
+    plain_b = time_ms(gram_plain, u, iters)
     # The one library call for the same product: a GEMM of the centered U.
     uc = u - u.mean(dim=0)
-    library_ms = time_ms(lambda x: torch.mm(x, x.T), uc)
-    c, d = u.shape
-    # Bound: U read once, G written once; the C(C+1)/2 distinct dot products
-    # at the f32 rate (the kernel stays off TF32).
-    bound_ms, bound_by = bound(nbytes(u) + 4 * c * c, c * (c + 1) * d)
-    print(f"[kernel] gram {MAIN_SHAPE}: kernel {kern_a:.4f} / {kern_b:.4f} ms,"
-          f" plain {plain_a:.4f} / {plain_b:.4f} ms, torch.mm of the centered"
-          f" U {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    library_ms = time_ms(lambda x: torch.mm(x, x.T), uc, iters)
     del uc
+    mean_ms = time_ms(lambda x: x.mean(dim=0), u, iters)
+    print(f"[kernel] gram {tuple(u.shape)}: kernel {kern_a:.4f} / "
+          f"{kern_b:.4f} ms, plain {plain_a:.4f} / {plain_b:.4f} ms, "
+          f"torch.mm of the centered U {library_ms:.4f} ms; torch.mean "
+          f"{mean_ms:.4f} ms ({mean_ms / ((kern_a + kern_b) / 2):.1%} of "
+          f"gram())")
+    return (kern_a + kern_b) / 2, (plain_a + plain_b) / 2, library_ms, mean_ms
+
+
+def gram_bound(c: int, d: int) -> tuple:
+    """(bound_ms, bound_by) of the 3xTF32 Gram: U read once and G written
+    once, against the 3 C (C + 1) D products at the TF32 rate; prints the
+    f32 CUDA-core figure (C (C + 1) D at 67 TFLOP/s) beside it."""
+    moved = 4 * (c * d + c * c)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * c * (c + 1) * d / TF32_FLOPS * 1e3
+    f32_ms, f32_by = bound(moved, c * (c + 1) * d)
+    print(f"[kernel] gram [{c}, {d}] bound: {max(t_bytes, t_ops):.4f} ms "
+          f"(bytes {t_bytes:.4f}, 3xTF32 operations {t_ops:.4f}); at the "
+          f"f32 CUDA-core rate {f32_ms:.4f} ms ({f32_by})")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernel() -> dict:
+    from multimodal_fl_security_tpu_torch.models import create_model, init_model
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    # Main path's shape and kind of input: near-identical parameter vectors;
+    # then the same with the first rows scaled x10, as R3's attack sends.
+    base = init_model(create_model("simple_cnn"), in_channels=1, seed=0,
+                      device="cuda")
+    main = base + 0.01 * torch.randn(MAIN_SHAPE, generator=gen,
+                                     device="cuda")
+    scaled = main.clone()
+    scaled[:SCALED_ROWS] *= 10.0
+    main_err = check_gram(main)
+    check_gram(scaled)
+    del scaled
+    for s in RAGGED_SHAPES:
+        check_gram(torch.randn(s, generator=gen, device="cuda"))
+
+    ms, plain_ms, library_ms, mean_ms = gram_times(main, 20)
+    bound_ms, bound_by = gram_bound(*MAIN_SHAPE)
+    big = 0.01 * torch.randn(GRAM_BIG_SHAPE, generator=gen, device="cuda")
+    big += 1.0
+    big_err = check_gram(big)
+    big_ms, big_plain_ms, big_library_ms, _ = gram_times(big, 5)
+    big_bound_ms, _ = gram_bound(*GRAM_BIG_SHAPE)
+    del big
+    torch.cuda.empty_cache()
     return {"name": "gram", "route": "cuda", "source": GRAM_SOURCE,
             "replaces": GRAM_REPLACES, "max_abs_err": main_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "mean_ms": mean_ms, "ms_100x8M": big_ms,
+            "plain_ms_100x8M": big_plain_ms,
+            "library_ms_100x8M": big_library_ms,
+            "bound_ms_100x8M": big_bound_ms, "max_abs_err_100x8M": big_err}
 
 
 def sort_trim(c: int) -> int:
@@ -799,7 +852,7 @@ def phase_fused_kernels() -> dict:
         for name, got, ref in zip(("dW", "db", "dx"), k2, bwd(
                 cd.dense_bwd_plain, dl, h4, v["fc2.weight"], v["fc2.bias"],
                 h4, f32, f32, dt)):
-            held(f"fc2 bwd {name}", got, ref, dt)
+            errs["fc2_bwd", dt, name] = held(f"fc2 bwd {name}", got, ref, dt)
         dz4 = k2[2]
         k1 = bwd(cd.dense_bwd, dz4, f3, v["fc1.weight"], v["fc1.bias"], None,
                  dt, dt, dt)
@@ -867,6 +920,8 @@ def phase_fused_kernels() -> dict:
     w4g = w4b.permute(0, 4, 3, 1, 2).reshape(-1, 8, 4, 4).contiguous()
     gw2, gb2 = torch.empty_like(w2), torch.empty_like(b2)
     gw1, gb1 = torch.empty_like(w1), torch.empty_like(b1)
+    gwf2, gbf2 = torch.empty_like(v["fc2.weight"]), torch.empty_like(
+        v["fc2.bias"])
     gwc1 = torch.empty_like(v["conv1.weight"])
     gbc1 = torch.empty_like(v["conv1.bias"])
     pk2, mk2 = p.clone(), mom.clone()
@@ -949,7 +1004,7 @@ def phase_fused_kernels() -> dict:
                                   wf2.transpose(1, 2)),
             nbytes(t["h4"], wf2, bf2, t["logits"]), 2 * c * 32 * 128 * 10,
             f32),
-        "dense_bwd": (
+        "dense_bwd_tc": (
             lambda: cd.dense_bwd(t["dz4"], t["f3"], w1, gw1, gb1,
                                  wdtype=bf16, gdtype=bf16, dx_dtype=bf16),
             lambda: cd.dense_bwd_plain(t["dz4"], t["f3"], w1, gw1, gb1,
@@ -957,6 +1012,17 @@ def phase_fused_kernels() -> dict:
                                        dx_dtype=bf16),
             None, nbytes(t["dz4"], t["f3"], w1, gw1, gb1, t["f3"]),
             4 * c * 32 * 3136 * 128, bf16),
+        # fc2's backward on the bf16 path: the CUDA-core kernel (f32
+        # weights), through fc1's relu (the mask) into a bf16 dx.
+        "dense_bwd": (
+            lambda: cd.dense_bwd(t["dl"], t["h4"], wf2, gwf2, gbf2,
+                                 mask=t["h4"], wdtype=f32, gdtype=f32,
+                                 dx_dtype=bf16),
+            lambda: cd.dense_bwd_plain(t["dl"], t["h4"], wf2, gwf2, gbf2,
+                                       mask=t["h4"], wdtype=f32, gdtype=f32,
+                                       dx_dtype=bf16),
+            None, nbytes(t["dl"], t["h4"], t["h4"], wf2, gwf2, gbf2, t["h4"]),
+            4 * c * 32 * 128 * 10, f32),
         "client_ce": (
             lambda: cs.client_ce(t["logits"], labels, mask),
             lambda: cs.client_ce_plain(t["logits"], labels, mask),
@@ -980,7 +1046,8 @@ def phase_fused_kernels() -> dict:
                "conv_wgrad_tc": ("conv_wgrad", bf16, "dW"),
                "conv_dgrad_tc": ("conv_dgrad", bf16),
                "dense_fwd": ("fc2", bf16),
-               "dense_bwd": ("dense_bwd", f32, "dW"),
+               "dense_bwd_tc": ("dense_bwd", bf16, "dW"),
+               "dense_bwd": ("fc2_bwd", bf16, "dW"),
                "client_ce": ("ce", f32), "client_sq_norm": ("sq_norm", f32),
                "client_sgd_update": ("sgd_update", f32)}
     for name, (kern, plain, lib, moved, flops, dt) in cases.items():
@@ -1007,6 +1074,17 @@ def phase_fused_kernels() -> dict:
             "library_ms": library_ms}
         if err_key[name][0] in ("stem", "conv_fwd"):
             rows[name]["argmax_agreement"] = agree[err_key[name][:2]]
+    # fc1's backward has no single library call: as a reference, the two
+    # torch.bmm (dW = dz^T x, dx = dz W in bf16, W cast from the f32
+    # buffer) and the sum (db) that compute the same outputs.
+    dz4, f3 = t["dz4"], t["f3"]
+    ref_runs = sorted(time_ms(lambda _: (
+        torch.bmm(dz4.transpose(1, 2), f3), torch.bmm(dz4, w1.to(bf16)),
+        dz4.float().sum(dim=1)), None) for _ in range(3))
+    rows["dense_bwd_tc"]["reference_ms"] = ref_runs[1]
+    print(f"[fused] dense_bwd_tc bf16: reference (two torch.bmm, W's cast "
+          f"and the sum) {ref_runs[1]:.4f} ms (runs {ref_runs[0]:.4f}-"
+          f"{ref_runs[2]:.4f})")
     # The other use of a kernel on the path (the stem's weight gradient),
     # with its library call and bound, and K3's raw conv.
     dz1g = cc._grouped(cc._dense_dz(t["dh1"], t["h1"], t["a1"], 28, 28)
@@ -1094,13 +1172,15 @@ def check_kernels(what: str, result: dict, f32_steps: int = 0,
                   tc_steps: int = 0) -> None:
     """Every launch of the conv and dense wrappers went through the kernel
     of its dtype, per step: two forward convs, two weight gradients and one
-    input gradient, and fc1's and fc2's forward; in f32 all on the CUDA-core
-    kernels, in bf16 all on the tensor-core ones but fc2's (f32 weights)."""
+    input gradient, and fc1's and fc2's forward and backward; in f32 all on
+    the CUDA-core kernels, in bf16 all on the tensor-core ones but fc2's
+    (f32 weights)."""
     want = {"conv_fwd": 2 * f32_steps, "conv2_fwd_tc": tc_steps,
             "stem_fwd_tc": tc_steps, "conv_wgrad": 2 * f32_steps,
             "conv_wgrad_tc": 2 * tc_steps, "conv_dgrad": f32_steps,
             "conv_dgrad_tc": tc_steps, "dense_fwd": 2 * f32_steps + tc_steps,
-            "dense_fwd_tc": tc_steps}
+            "dense_fwd_tc": tc_steps, "dense_bwd": 2 * f32_steps + tc_steps,
+            "dense_bwd_tc": tc_steps}
     got = result["kernel_launches"]
     print(f"[fused] {what}: launches by kernel {got}")
     if got != want:

@@ -27,6 +27,16 @@
 //    slice's loads in flight. Rank 0 adds the ranks' partial sums through
 //    distributed shared memory in rank order: no atomics, two calls are
 //    bitwise equal. dense_fwd serves wdtype f32 (fc2, and the checking mode).
+//  - dense_bwd_tc: the backward for wdtype bf16 (fc1 on the path) on the
+//    tensor cores, dense_fwd_tc's design turned around: one block per
+//    (128-wide slice of K, client), 2,500 blocks at fc1's shapes; dz staged
+//    once per block; dW = dz^T x and dx = dz W by mma.sync.m16n8k16 (bf16
+//    operands, f32 sums) through ldmatrix(.trans); W read as float2 and
+//    converted to bf16 while staged, the next 64-wide half's loads in flight
+//    while the tensor cores run; dW stored as float2. Its bound is bytes: W
+//    read and dW written in f32 (321 of the 362 MB a call moves, 0.108 ms at
+//    3.35 TB/s; the products are 0.005 ms at the bf16 peak). Every sum lies
+//    in one block: two calls are bitwise equal. dense_bwd serves wdtype f32.
 //
 // What bounds the CUDA-core kernels: fc1 is 2*32*3136*128 = 25.7 MFLOP per
 // client per pass, 2.6 GFLOP per step over 100 clients; its weights are 160
@@ -307,6 +317,238 @@ dense_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView y, int rows,
   cluster.sync();  // rank 0 has read the others' shared memory
 }
 
+constexpr int kDbRows = 32;         // batch rows the backward takes (fc1: 32)
+constexpr int kDbF = 128;           // output features it takes (fc1: 128)
+constexpr int kDbK = 64;            // k columns staged at once
+constexpr int kDbSubs = 2;          // 64-wide sub-slices per block
+constexpr int kDbMinBlocks = 1;     // blocks an SM (caps registers)
+constexpr int kDbSpan = kDbK * kDbSubs;  // a block's slice of K: 128
+constexpr int kDbZRow = kDbF + 8;   // bf16 dz rows in smem, 272 B
+constexpr int kDbKRow = kDbK + 8;   // bf16 x and W rows in smem, 144 B
+// The staging and warp maps below are written for exactly these sizes: one
+// 16-byte x chunk, 16 W pairs and two 16-byte dz chunks per thread; warp w
+// owns dW rows 16 w + [0, 16) x 64 columns and dx rows 16 (w & 1) + [0, 16)
+// x columns 16 (w >> 1) + [0, 16).
+static_assert(kThreads == 256 && kDbRows * kDbK == 8 * kThreads &&
+                  kDbF * kDbK == 32 * kThreads &&
+                  kDbRows * kDbF == 16 * kThreads && kDbF == 8 * 16 &&
+                  kDbK == 4 * 16 && kDbRows == 2 * 16,
+              "dense_bwd_tc_kernel's staging assumes 256 threads and a "
+              "32 x 128 x 64 tile");
+
+// One block per (128-wide slice of K, client): grid (slices, clients). dz
+// ([rows <= 32][f <= 128], bf16) is staged once; the slice's two 64-wide
+// halves go through x (bf16) and W (f32, rounded to bf16 while staged), the
+// second half's loads in flight while the tensor cores run on the first:
+//   dW[:, s] = dz^T x[:, s]  M = 128 features, N = 64, K = 32 rows; A = dz^T
+//                            and B = x, both through ldmatrix.trans;
+//   dx[:, s] = dz W[:, s]    M = 32 rows, N = 64, K = 128 features; A = dz
+//                            through ldmatrix, B = W through ldmatrix.trans.
+// db in the slice-0 block, over the rows in order. Every sum lies inside one
+// block: two calls are bitwise equal. kVec: the main path's layouts (bf16 dz,
+// x and dx with aligned rows, f32 W and dW with 8-byte pairs: fc1's weight
+// rows of an odd client are 8-byte aligned only) as vector loads and stores;
+// else element by element, any strides. dW rounds to gdt; dx rounds to its
+// dtype, then the optional relu mask zeroes it, as dense_bwd_kernel does.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kDbMinBlocks)
+dense_bwd_tc_kernel(MftView dz, MftView x, MftView w, MftView mask,
+                    MftView gw, MftView gb, MftView dx, int rows, int k,
+                    int f, int gdt) {
+  __shared__ __align__(16) bf16 zs[kDbRows * kDbZRow];
+  __shared__ __align__(16) bf16 xs[kDbRows * kDbKRow];
+  __shared__ __align__(16) bf16 ws[kDbF * kDbKRow];
+  const int c = blockIdx.y;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7, gq = lane >> 2, tq = lane & 3;
+  const int kbeg = blockIdx.x * kDbSpan;
+  const int kend = min(k, kbeg + kDbSpan);
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // dz, once: 512 chunks of 8
+    const int idx = t + j * kThreads;
+    const int r = idx / 16, q = 8 * (idx % 16);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (kVec) {
+      if (r < rows && q < f) {
+        v = *reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(dz.ptr) + c * dz.st[0] + r * dz.st[1] +
+            q);
+      }
+    } else {
+      float e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        e[i] = r < rows && q + i < f
+                   ? mft_ld(dz, mft_off(dz, c, r, q + i, 0, 0))
+                   : 0.f;
+      }
+      v = make_uint4(mft_pack2(e[0], e[1]), mft_pack2(e[2], e[3]),
+                     mft_pack2(e[4], e[5]), mft_pack2(e[6], e[7]));
+    }
+    *reinterpret_cast<uint4*>(zs + r * kDbZRow + q) = v;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0) {  // db, over the rows in order
+    for (int fo = t; fo < f; fo += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += __bfloat162float(zs[r * kDbZRow + fo]);
+      mft_st(gb, mft_off(gb, c, 0, fo, 0, 0), mft_round(s, gdt));
+    }
+  }
+
+  // Thread t stages x row t / 8, columns 8 (t % 8) .. + 7 of a sub-slice,
+  // and W pairs idx = t + 256 j (row idx / 32, columns 2 (idx % 32), + 1).
+  const int xr = t >> 3, xk = 8 * (t & 7);
+  uint4 xv;
+  float wv[32];
+  auto load = [&](int k0) {
+    if (kVec) {
+      xv = make_uint4(0u, 0u, 0u, 0u);
+      if (xr < rows && k0 + xk < kend) {
+        xv = *reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(x.ptr) + c * x.st[0] + xr * x.st[1] +
+            k0 + xk);
+      }
+    } else {
+      float e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        e[i] = xr < rows && k0 + xk + i < kend
+                   ? mft_ld(x, mft_off(x, c, xr, k0 + xk + i, 0, 0))
+                   : 0.f;
+      }
+      xv = make_uint4(mft_pack2(e[0], e[1]), mft_pack2(e[2], e[3]),
+                      mft_pack2(e[4], e[5]), mft_pack2(e[6], e[7]));
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int idx = t + j * kThreads;
+      const int fr = idx >> 5, kk = k0 + 2 * (idx & 31);
+      if (kVec) {
+        float2 v = make_float2(0.f, 0.f);
+        if (fr < f && kk < kend) {
+          v = *reinterpret_cast<const float2*>(
+              static_cast<const float*>(w.ptr) + c * w.st[0] + fr * w.st[1] +
+              kk);
+        }
+        wv[2 * j] = v.x;
+        wv[2 * j + 1] = v.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          wv[2 * j + e] = fr < f && kk + e < kend
+                              ? mft_ld(w, mft_off(w, c, fr, kk + e, 0, 0))
+                              : 0.f;
+        }
+      }
+    }
+  };
+  // ldmatrix row addresses. dW: A = dz^T (stored [r][f]: matrix i is rows
+  // 8 (i >> 1) + lr, columns 16 warp + 8 (i & 1)), B = x (stored [r][k]:
+  // rows 8 (i & 1) + lr, columns 8 (i >> 1) + 16 per n pair). dx: A = dz
+  // (rows 16 (warp & 1) + 8 (i & 1) + lr, columns 8 (i >> 1)), B = W
+  // (stored [f][k]: rows 8 (i & 1) + lr, columns 16 (warp >> 1) + 8 (i >> 1)).
+  const uint32_t aw_addr = mft_smem_addr(
+      zs + ((li >> 1) * 8 + lr) * kDbZRow + 16 * warp + (li & 1) * 8);
+  const uint32_t bw_addr =
+      mft_smem_addr(xs + ((li & 1) * 8 + lr) * kDbKRow + (li >> 1) * 8);
+  const uint32_t ax_addr = mft_smem_addr(
+      zs + (16 * (warp & 1) + (li & 1) * 8 + lr) * kDbZRow + (li >> 1) * 8);
+  const uint32_t bx_addr = mft_smem_addr(
+      ws + ((li & 1) * 8 + lr) * kDbKRow + 16 * (warp >> 1) + (li >> 1) * 8);
+  constexpr uint32_t kZ16 = 16 * kDbZRow * sizeof(bf16);  // 16 dz rows
+  constexpr uint32_t kK16 = 16 * kDbKRow * sizeof(bf16);  // 16 x or W rows
+
+  load(kbeg);
+  for (int k0 = kbeg; k0 < kend; k0 += kDbK) {
+    __syncthreads();  // the previous sub-slice is read
+    *reinterpret_cast<uint4*>(xs + xr * kDbKRow + xk) = xv;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int idx = t + j * kThreads;
+      *reinterpret_cast<uint32_t*>(ws + (idx >> 5) * kDbKRow +
+                                   2 * (idx & 31)) =
+          mft_pack2(wv[2 * j], wv[2 * j + 1]);
+    }
+    __syncthreads();
+    if (k0 + kDbK < kend) load(k0 + kDbK);
+
+    float aw[8][4] = {};  // dW rows 16 warp + .., columns 8 nt + ..
+#pragma unroll
+    for (int ks = 0; ks < kDbRows / 16; ++ks) {
+      uint32_t a[4];
+      ldsm4_t(a, aw_addr + ks * kZ16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bb[4];
+        ldsm4_t(bb, bw_addr + ks * kK16 + np * 32);
+        mma16816(aw[2 * np], a, bb[0], bb[1]);
+        mma16816(aw[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int fo = 16 * warp + gq + 8 * h;
+        const int kk = k0 + 8 * nt + 2 * tq;
+        if (fo >= f || kk >= kend) continue;
+        const float v0 = mft_round(aw[nt][2 * h], gdt);
+        const float v1 = mft_round(aw[nt][2 * h + 1], gdt);
+        if (kVec) {
+          *reinterpret_cast<float2*>(static_cast<float*>(gw.ptr) +
+                                     c * gw.st[0] + fo * gw.st[1] + kk) =
+              make_float2(v0, v1);
+        } else {
+          mft_st(gw, mft_off(gw, c, fo, kk, 0, 0), v0);
+          if (kk + 1 < kend) mft_st(gw, mft_off(gw, c, fo, kk + 1, 0, 0), v1);
+        }
+      }
+    }
+
+    float ax[2][4] = {};  // dx rows 16 (warp & 1) + .., columns 16 (warp >> 1) + ..
+#pragma unroll
+    for (int ks = 0; ks < kDbF / 16; ++ks) {
+      uint32_t a[4], bb[4];
+      ldsm4(a, ax_addr + ks * 32);
+      ldsm4_t(bb, bx_addr + ks * kK16);
+      mma16816(ax[0], a, bb[0], bb[1]);
+      mma16816(ax[1], a, bb[2], bb[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * (warp & 1) + gq + 8 * h;
+        const int kk = k0 + 16 * (warp >> 1) + 8 * nt + 2 * tq;
+        if (r >= rows || kk >= kend) continue;
+        float v[2] = {ax[nt][2 * h], ax[nt][2 * h + 1]};
+        if (mask.ptr != nullptr) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (kk + e >= kend) continue;
+            // Round first, then mask: the relu's backward after the cast.
+            v[e] = mft_round(v[e], dx.dtype);
+            if (!(mft_ld(mask, mft_off(mask, c, r, kk + e, 0, 0)) > 0.f)) {
+              v[e] = 0.f;
+            }
+          }
+        }
+        if (kVec) {
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dx.ptr) +
+                                       c * dx.st[0] + r * dx.st[1] + kk) =
+              mft_pack2(v[0], v[1]);
+        } else {
+          mft_st(dx, mft_off(dx, c, r, kk, 0, 0), v[0]);
+          if (kk + 1 < kend) mft_st(dx, mft_off(dx, c, r, kk + 1, 0, 0), v[1]);
+        }
+      }
+    }
+  }
+}
+
 // Whether x (bf16) and w (f32) take dense_fwd_tc_kernel's vector loads: x
 // rows 16-byte aligned, W rows 8-byte aligned, k a multiple of 8.
 bool dense_vec(const MftView& x, const MftView& w, int k) {
@@ -315,6 +557,20 @@ bool dense_vec(const MftView& x, const MftView& w, int k) {
          reinterpret_cast<uintptr_t>(x.ptr) % 16 == 0 && w.st[2] == 1 &&
          w.st[0] % 2 == 0 && w.st[1] % 2 == 0 &&
          reinterpret_cast<uintptr_t>(w.ptr) % 8 == 0;
+}
+
+// Whether dense_bwd_tc_kernel takes vector loads and stores: dense_vec's x
+// and W, dz bf16 with 16-byte rows (f a multiple of 8), dW f32 with 8-byte
+// pairs, dx bf16 with 4-byte pairs.
+bool dense_bwd_vec(const MftView& dz, const MftView& x, const MftView& w,
+                   const MftView& gw, const MftView& dx, int k, int f) {
+  return dense_vec(x, w, k) && dz.dtype == kBF16 && f % 8 == 0 &&
+         dz.st[2] == 1 && dz.st[0] % 8 == 0 && dz.st[1] % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(dz.ptr) % 16 == 0 && gw.dtype == kF32 &&
+         gw.st[2] == 1 && gw.st[0] % 2 == 0 && gw.st[1] % 2 == 0 &&
+         reinterpret_cast<uintptr_t>(gw.ptr) % 8 == 0 && dx.dtype == kBF16 &&
+         dx.st[2] == 1 && dx.st[0] % 2 == 0 && dx.st[1] % 2 == 0 &&
+         reinterpret_cast<uintptr_t>(dx.ptr) % 4 == 0;
 }
 
 }  // namespace
@@ -377,6 +633,29 @@ int mft_dense_bwd(const MftView* dz, const MftView* x, const MftView* w,
   const dim3 grid((k + kTile - 1) / kTile, clients);
   dense_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       *dz, *x, *w, *mask, *gw, *gb, *dx, rows, k, f, wdt, gdt);
+  return cudaGetLastError();
+}
+
+// The backward for wdtype bf16 on the tensor cores: the same arguments as
+// mft_dense_bwd without wdt. dz and x must be bf16, rows <= 32 and f <= 128
+// (the wrapper refuses others).
+int mft_dense_bwd_tc(const MftView* dz, const MftView* x, const MftView* w,
+                     const MftView* mask, const MftView* gw, const MftView* gb,
+                     const MftView* dx, int clients, int rows, int k, int f,
+                     int gdt, int device, void* stream) {
+  if (clients <= 0 || rows <= 0 || k <= 0 || f <= 0 || clients > 65535 ||
+      rows > kDbRows || f > kDbF || dz->dtype != kBF16 ||
+      x->dtype != kBF16) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((k + kDbSpan - 1) / kDbSpan, clients);
+  const auto kernel = dense_bwd_vec(*dz, *x, *w, *gw, *dx, k, f)
+                          ? dense_bwd_tc_kernel<true>
+                          : dense_bwd_tc_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *dz, *x, *w, *mask, *gw, *gb, *dx, rows, k, f, gdt);
   return cudaGetLastError();
 }
 

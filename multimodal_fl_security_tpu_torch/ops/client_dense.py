@@ -11,6 +11,8 @@ views of the flat parameter buffer (torch's ``[out, in]`` order, so fc1's
 input axis is the pooled map's (c, h, w) flatten) and biases ``[C, F]``.
 Weights are rounded to ``wdtype`` where the port's ``SimpleCNN.forward``
 casts them; products accumulate in f32; outputs round once to their dtype.
+``wdtype`` picks the kernel, in the open: f32 the CUDA-core ``dense_fwd`` and
+``dense_bwd``, bf16 the tensor-core ``dense_fwd_tc`` and ``dense_bwd_tc``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from multimodal_fl_security_tpu_torch.ops._launch import (
 
 _MAT_AXES = (0, 1, 2)      # (client, row, column)
 _BIAS_AXES = (0, None, 1)  # (client, -, feature)
+#: the rows and output features ``dense_bwd_tc`` takes (fc1: 32 and 128)
+TC_BWD_MAX_ROWS, TC_BWD_MAX_F = 32, 128
 
 
 @functools.cache
@@ -47,6 +51,8 @@ def _library() -> ctypes.CDLL:
     lib.mft_dense_fwd_tc.restype = i
     lib.mft_dense_bwd.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_void_p]
     lib.mft_dense_bwd.restype = i
+    lib.mft_dense_bwd_tc.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_void_p]
+    lib.mft_dense_bwd_tc.restype = i
     lib.mft_client_dense_error_string.argtypes = [i]
     lib.mft_client_dense_error_string.restype = ctypes.c_char_p
     return lib
@@ -139,7 +145,11 @@ def dense_bwd(dz: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     (``gw`` [C, F, K]) and db (``gb`` [C, F]), rounded to ``gdtype``, into
     the f32 gradient buffer's views, and returns dx = dz W [C, rows, K] in
     ``dx_dtype``, times ``mask > 0`` (the previous layer's relu) when a mask
-    is given. ``dense_bwd.launches`` counts kernel launches."""
+    is given. ``wdtype`` f32 runs the CUDA-core kernel ``dense_bwd``; bf16
+    the tensor-core kernel ``dense_bwd_tc``, which takes dz and x in bf16,
+    rows <= 32 and F <= 128 only (any other call raises: it never drops to
+    the CUDA-core kernel). ``dense_bwd.launches`` counts the launches of
+    both, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if dz.device.type == "cpu":
         return dense_bwd_plain(dz, x, w, gw, gb, mask=mask, wdtype=wdtype,
                                gdtype=gdtype, dx_dtype=dx_dtype)
@@ -150,15 +160,31 @@ def dense_bwd(dz: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           *([mask] if mask is not None else []))
     c, rows, k = x.shape
     f = w.shape[1]
+    tc = wdtype == torch.bfloat16
+    if tc and (dz.dtype != torch.bfloat16 or x.dtype != torch.bfloat16
+               or rows > TC_BWD_MAX_ROWS or f > TC_BWD_MAX_F):
+        raise ValueError(
+            f"dense_bwd with wdtype bf16 runs on the tensor-core kernel, "
+            f"which takes dz and x in bf16, rows <= {TC_BWD_MAX_ROWS} and "
+            f"F <= {TC_BWD_MAX_F}; got dz {dz.dtype}, x {x.dtype}, rows "
+            f"{rows}, F {f}")
     dx = torch.empty((c, rows, k), dtype=dx_dtype, device=device)
     lib = _library()
     views = [view(dz, _MAT_AXES), view(x, _MAT_AXES), view(w, _MAT_AXES),
              view(mask, _MAT_AXES), view(gw, _MAT_AXES),
              view(gb, _BIAS_AXES), view(dx, _MAT_AXES)]
-    err = lib.mft_dense_bwd(*[ctypes.byref(v) for v in views], c, rows, k, f,
-                            DTYPE_CODES[wdtype], DTYPE_CODES[gdtype],
-                            device.index, stream_of(dz))
-    check(lib, err, "dense_bwd", "client_dense")
+    refs = [ctypes.byref(v) for v in views]
+    if tc:
+        kernel = "dense_bwd_tc"
+        err = lib.mft_dense_bwd_tc(*refs, c, rows, k, f, DTYPE_CODES[gdtype],
+                                   device.index, stream_of(dz))
+    else:
+        kernel = "dense_bwd"
+        err = lib.mft_dense_bwd(*refs, c, rows, k, f, DTYPE_CODES[wdtype],
+                                DTYPE_CODES[gdtype], device.index,
+                                stream_of(dz))
+    check(lib, err, kernel, "client_dense")
+    count(kernel)
     dense_bwd.launches += 1
     return dx
 

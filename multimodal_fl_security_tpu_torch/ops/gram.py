@@ -43,7 +43,9 @@ def gram(updates: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor goes through the kernel: the mean is taken here with
     ``torch.mean``, as ``gram_pallas`` takes it outside its kernel, and
-    the kernel subtracts it while it streams U once. A CPU tensor goes
+    the kernel subtracts it while it streams U once, summing the products
+    on the tensor cores in 3xTF32 (hi·hiᵀ + hi·loᵀ + lo·hiᵀ of each
+    centered value's two TF32 parts, f32 sums). A CPU tensor goes
     through :func:`gram_plain`. ``gram.launches`` counts kernel launches.
     """
     if updates.dim() != 2 or updates.shape[0] == 0 or updates.shape[1] == 0:

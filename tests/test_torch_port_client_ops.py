@@ -268,16 +268,19 @@ def test_bf16_forward_oracle_matches_jax_mirror(case):
 
 # ---------------------------------------------------------------- gradients
 
-def jax_step(case, c):
-    """(loss, folded logical gradients) of client c's packed loss."""
+def jax_step(case, c, compute_dtype=None):
+    """(loss, folded logical gradients) of client c's packed loss, with the
+    mirror's compute dtype (f32 unless given)."""
     jax, jnp, _, ft, _ = jax_side()
     p = client_tree(case["stacked"], c)
     xblk = ft.pack_blocks(jnp.asarray(case["blocks"][c]))
     onehot = jax.nn.one_hot(case["labels"][c], 128)
     bmask = jnp.asarray(case["mask"][c])
+    cd = jnp.float32 if compute_dtype is None else compute_dtype
 
     def loss(pk):
-        return ft.packed_ce(ft.mirror_forward(pk, xblk), onehot, bmask)
+        return ft.packed_ce(ft.mirror_forward(pk, xblk, compute_dtype=cd),
+                            onehot, bmask)
 
     pk = ft.pack_params(p)
     value, g = jax.value_and_grad(loss)(pk)
@@ -326,6 +329,68 @@ def test_step_grads_match_folded_jax_grads(case):
     for name in got_v:
         np.testing.assert_allclose(got_v[name].numpy(), want_v[name].numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_bf16_fc1_backward_oracle_matches_jax_grad(case):
+    """The plain bf16 fc1 backward the tensor-core kernel ``dense_bwd_tc``
+    is held to (``dense_bwd_plain`` with wdtype, gdtype and dx in bf16:
+    ``step_grads``'s on the CPU) against the JAX package's bf16 gradient of
+    ``mirror_forward`` (``jax.grad`` of ``packed_ce``, folded). Both sides
+    get the same operands: JAX's pooled map and the cotangent of fc1's
+    product, read through ``forward_impl``'s ``bdot`` (zero taps whose
+    gradients are dz and dx; the loss is ``mirror_forward``'s bitwise), and
+    fc1's weights. Measured on this seed: dW and dx bitwise equal (both
+    round once from f32 sums), db up to 0.0039 apart at values up to 0.31:
+    JAX sums the 32 rows in bf16 (``fused_train.py:410``'s VJP), the port
+    rounds once. Tolerance: one bf16 rounding (2^-8 of each value) for dW
+    and dx; for db the bf16 running sum's error bound, 32 roundings of half
+    an ulp of at most max sum|dz|."""
+    jax, jnp, _, ft, _ = jax_side()
+    bf16, jbf16 = torch.bfloat16, jnp.bfloat16
+    layout = case["model"].layout(CIN)
+    folded, xs, dzs, dxs = [], [], [], []
+    for c in range(C):
+        p = client_tree(case["stacked"], c)
+        pk = ft.pack_params(p)
+        xblk = ft.pack_blocks(jnp.asarray(case["blocks"][c]))
+        onehot = jax.nn.one_hot(case["labels"][c], 128)
+        bmask = jnp.asarray(case["mask"][c])
+        taken = []
+
+        def loss(pk, e_in, e_out, taken=taken):
+            def bdot(a, w):  # fc1's product; the zero taps read its VJP
+                taken.append(a)
+                return ft._bdot(a + e_in, w) + e_out
+            return ft.packed_ce(ft.forward_impl(
+                pk, xblk, compute_dtype=jbf16, bdot=bdot), onehot, bmask)
+
+        zero = jnp.zeros((28, B, 128), jbf16)
+        assert float(loss(pk, zero, zero)) == float(ft.packed_ce(
+            ft.mirror_forward(pk, xblk, compute_dtype=jbf16), onehot, bmask))
+        h3 = taken[0]  # [28, B, 128], bf16
+        g, d_in, d_out = jax.grad(loss, argnums=(0, 1, 2))(pk, zero, zero)
+        assert bool(jnp.all(d_out == d_out[0]))  # part.sum(-3)'s VJP
+        folded.append(ft.fold_grads(g, p))
+        xs.append(packed_map(jnp.swapaxes(h3, 0, 1), 2, 64, 7).reshape(B, -1))
+        dzs.append(np.asarray(d_out[0].astype(jnp.float32)))
+        dxs.append(packed_map(jnp.swapaxes(d_in, 0, 1), 2, 64, 7)
+                   .reshape(B, -1))
+    want = layout.views(params_from_jax(case["model"], stack_trees(folded),
+                                        device="cpu"))
+    w = layout.views(case["params"])["fc1.weight"]
+    gw, gb = torch.empty_like(w), torch.empty((C, 128))
+    dx = dense_bwd_plain(torch.from_numpy(np.stack(dzs)).to(bf16),
+                         torch.from_numpy(np.stack(xs)).to(bf16), w, gw, gb,
+                         wdtype=bf16, gdtype=bf16, dx_dtype=bf16)
+    assert dx.dtype == bf16
+    ulp = 2.0 ** -8  # one bf16 rounding, relative
+    for got, ref in ((gw, want["fc1.weight"]),
+                     (dx.float(), torch.from_numpy(np.stack(dxs)))):
+        assert float(ref.abs().max()) > 0
+        assert bool(((got - ref).abs() <= ulp * ref.abs()).all())
+    sum_dz = torch.from_numpy(np.stack(dzs)).abs().sum(dim=1)  # [C, 128]
+    torch.testing.assert_close(gb, want["fc1.bias"], rtol=0,
+                               atol=ulp / 2 * B * float(sum_dz.max()))
 
 
 @pytest.mark.parametrize("clip_norm", [0.01, 100.0, 0.0])
@@ -624,8 +689,17 @@ def test_kernel_choice_follows_the_dtype(cuda):
         counts[dtype, "raw", 8] = {
             k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
         before = dict(KERNEL_LAUNCHES)
-        dense_fwd(*dense_case(cuda, 3, 7, 100, 37, dtype), wdtype=dtype)
+        dx, dw, db = dense_case(cuda, 3, 7, 100, 37, dtype)
+        dense_fwd(dx, dw, db, wdtype=dtype)
         counts[dtype, "dense"] = {
+            k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+        before = dict(KERNEL_LAUNCHES)
+        bwd_before = dense_bwd.launches
+        dz = torch.randn((3, 7, 37), generator=cuda, device="cuda").to(dtype)
+        dense_bwd(dz, dx, dw, torch.empty_like(dw), torch.empty_like(db),
+                  wdtype=dtype, gdtype=dtype, dx_dtype=dtype)
+        assert dense_bwd.launches == bwd_before + 1
+        counts[dtype, "dense_bwd"] = {
             k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
     torch.cuda.synchronize()
     zero = dict.fromkeys(KERNEL_LAUNCHES, 0)
@@ -643,6 +717,8 @@ def test_kernel_choice_follows_the_dtype(cuda):
         assert counts[dtype, "raw", 8] == {**zero, "conv_fwd": 1}
         assert counts[dtype, "dense"] == {**zero, "dense_fwd": int(not tc),
                                           "dense_fwd_tc": int(tc)}
+        assert counts[dtype, "dense_bwd"] == {
+            **zero, "dense_bwd": int(not tc), "dense_bwd_tc": int(tc)}
 
 
 @pytest.mark.cuda
@@ -654,6 +730,14 @@ def test_tc_kernels_refuse_other_bf16_calls(cuda):
     sx, sw, sb, sh, sarg, sdp = pooled_case(cuda, "stem", 3, 5, 1, bf16)
     gw, gb = torch.empty_like(w), torch.empty_like(bias)
     dx, dw, db = dense_case(cuda, 3, 7, 100, 37, torch.float32)
+    gw_d, gb_d = torch.empty_like(dw), torch.empty_like(db)
+    dz = torch.randn((3, 7, 37), generator=cuda, device="cuda")
+    dz33 = torch.zeros((3, 33, 37), device="cuda", dtype=bf16)
+    dx33 = torch.zeros((3, 33, 100), device="cuda", dtype=bf16)
+    dz129 = torch.zeros((3, 7, 129), device="cuda", dtype=bf16)
+    dw129 = torch.zeros((3, 129, 100), device="cuda")
+    gw129, gb129 = torch.empty_like(dw129), torch.zeros((3, 129),
+                                                         device="cuda")
     calls = {
         "conv2 at 16 input channels": lambda: conv_wgrad(
             x[:, :, :16], dp, h, arg, gw[:, :, :16], gb, dtype=bf16),
@@ -682,11 +766,21 @@ def test_tc_kernels_refuse_other_bf16_calls(cuda):
             dtype=bf16),
         "fc1 forward of an f32 x": lambda: dense_fwd(dx, dw, db,
                                                      wdtype=bf16),
+        "fc1 backward of an f32 dz": lambda: dense_bwd(
+            dz, dx.to(bf16), dw, gw_d, gb_d, wdtype=bf16, gdtype=bf16),
+        "fc1 backward of an f32 x": lambda: dense_bwd(
+            dz.to(bf16), dx, dw, gw_d, gb_d, wdtype=bf16, gdtype=bf16),
+        "fc1 backward of 33 rows": lambda: dense_bwd(
+            dz33, dx33, dw, gw_d, gb_d, wdtype=bf16, gdtype=bf16),
+        "fc1 backward of 129 outputs": lambda: dense_bwd(
+            dz129, dx.to(bf16), dw129, gw129, gb129, wdtype=bf16,
+            gdtype=bf16),
     }
 
     def counted():
         return (dict(KERNEL_LAUNCHES), conv_fwd.launches,
-                conv_wgrad.launches, conv_dgrad.launches, dense_fwd.launches)
+                conv_wgrad.launches, conv_dgrad.launches, dense_fwd.launches,
+                dense_bwd.launches)
 
     before = counted()
     for what, call in calls.items():
@@ -695,20 +789,48 @@ def test_tc_kernels_refuse_other_bf16_calls(cuda):
     assert counted() == before
 
 
-DENSE = [(3, 7, 100, 37, False), (100, 32, 3136, 128, False),
-         (100, 32, 128, 10, False), (3, 7, 100, 37, True),
-         (100, 32, 3136, 128, True)]
+DENSE = [(3, 7, 100, 37, False, False), (100, 32, 3136, 128, False, False),
+         (100, 32, 128, 10, False, False), (3, 7, 100, 37, True, False),
+         (100, 32, 3136, 128, True, False),
+         (100, 32, 3136, 128, False, True)]
+
+
+def flat_views(w, b):
+    """fc1's weight and bias copied into views of a flat [C, D] buffer of
+    SimpleCNN's layout, as the fused path reads them: a client's rows are
+    1,686,568 bytes apart, so an odd client's are 8-byte aligned only.
+    Returns (w, b, and a function that makes gradient views alike)."""
+    from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
+
+    layout = SimpleCNN().layout(1)
+
+    def views():
+        flat = torch.full((w.shape[0], layout.dim), float("nan"),
+                          device=w.device)
+        v = layout.views(flat)
+        return v["fc1.weight"], v["fc1.bias"]
+
+    fw, fb = views()
+    fw.copy_(w)
+    fb.copy_(b)
+    assert fw.data_ptr() % 8 == 0 and fw[1].data_ptr() % 16 != 0
+    return fw, fb, views
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,rows,k,f,ints", DENSE)
+@pytest.mark.parametrize("c,rows,k,f,ints,flat", DENSE)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_dense_kernels_match_plain(cuda, c, rows, k, f, ints, dtype):
+def test_dense_kernels_match_plain(cuda, c, rows, k, f, ints, flat, dtype):
     """Within one rounding of the plain versions on random operands,
-    bitwise on small integers (every sum exact; bf16 runs the forward on the
-    tensor-core kernel, with K split over a cluster), and two calls bitwise
-    equal."""
+    bitwise on small integers (every sum exact; bf16 runs the forward and
+    the backward on the tensor-core kernels, the forward with K split over
+    a cluster), and two calls bitwise equal; ``flat``: W, dW and db are
+    views of flat [C, D] buffers, whose odd clients' rows are 8-byte
+    aligned only."""
     x, w, b = dense_case(cuda, c, rows, k, f, dtype, ints)
+    grads = lambda: (torch.empty_like(w), torch.empty_like(b))  # noqa: E731
+    if flat:
+        w, b, grads = flat_views(w, b)
     y = dense_fwd(x, w, b, relu=True, wdtype=dtype, out_dtype=dtype)
     y_again = dense_fwd(x, w, b, relu=True, wdtype=dtype, out_dtype=dtype)
     y_want = dense_fwd_plain(x, w, b, relu=True, wdtype=dtype,
@@ -717,7 +839,7 @@ def test_dense_kernels_match_plain(cuda, c, rows, k, f, ints, dtype):
     dz = (dz.round() if ints else dz).to(dtype)
     outs = []
     for fn in (dense_bwd, dense_bwd, dense_bwd_plain):
-        gw, gb = torch.empty_like(w), torch.empty_like(b)
+        gw, gb = grads()
         dx = fn(dz, x, w, gw, gb, mask=x, wdtype=dtype, gdtype=dtype,
                 dx_dtype=dtype)
         outs.append((gw, gb, dx))

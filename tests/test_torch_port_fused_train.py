@@ -209,12 +209,14 @@ def test_kernel_path_bf16_is_reproducible_and_counted():
     assert launches == {fn.__name__: k * steps
                         for fn, k in STEP_KERNELS.items()}
     assert sum(launches.values()) == LAUNCHES_PER_STEP * steps
-    # bf16: the forward and the conv gradients on the tensor-core kernels,
-    # fc2 (f32 weights) on the CUDA-core dense_fwd.
+    # bf16: the forward, the conv gradients and fc1's backward on the
+    # tensor-core kernels, fc2 (f32 weights) on the CUDA-core dense_fwd and
+    # dense_bwd.
     assert per_kernel == {
         "conv_fwd": 0, "conv2_fwd_tc": steps, "stem_fwd_tc": steps,
         "conv_wgrad": 0, "conv_wgrad_tc": 2 * steps, "conv_dgrad": 0,
-        "conv_dgrad_tc": steps, "dense_fwd": steps, "dense_fwd_tc": steps}
+        "conv_dgrad_tc": steps, "dense_fwd": steps, "dense_fwd_tc": steps,
+        "dense_bwd": steps, "dense_bwd_tc": steps}
     assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
     # bf16 rounds at the same places; near ties may route differently.
     assert float((out - ref).abs().max()) < 1e-2

@@ -4,8 +4,10 @@ The JAX side runs its Pallas Gram kernel in interpret mode, as
 ``tests/test_pallas_kernels.py`` does, with a small ``block_d`` so the
 kernel's grid and its jnp remainder tail both run. The port side runs the
 plain torch version (a CPU tensor). Tolerance: rtol 1e-5, atol 1e-4 (f32
-sums in different orders). The CUDA case holds the Hopper kernel to the
-plain version on the card and skips without one.
+sums in different orders). The kernel's own arithmetic, 3xTF32 on the
+tensor cores, is emulated in numpy and held to the same reference and
+tolerance. The CUDA case holds the Hopper kernel to the plain version on
+the card and skips without one.
 """
 
 import numpy as np
@@ -51,6 +53,56 @@ def test_gram_matches_pallas_gram(c, d):
     assert gram.launches == before  # no kernel on the CPU
     assert got.shape == (c, c) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def tf32_rne(a):
+    """f32 values rounded to TF32 (10 mantissa bits), to nearest even: the
+    kernel's ``tf32_rne`` on the bits."""
+    b = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    b = (b + np.uint32(0xFFF) + ((b >> np.uint32(13)) & np.uint32(1))) \
+        & np.uint32(0xFFFFE000)
+    return b.view(np.float32)
+
+
+def gram_3xtf32(u):
+    """The Hopper kernel's arithmetic in numpy, at C <= 128 (one diagonal
+    tile pair): each centered value split into hi = tf32(a) and
+    lo = tf32(a - hi); B = hi (2 lo)^T + hi hi^T summed in f32; G the
+    symmetric part (B + B^T) / 2, which is lo hi^T + hi lo^T + hi hi^T."""
+    centered = u - u.mean(axis=0, dtype=np.float32)
+    hi = tf32_rne(centered)
+    lo2 = 2 * tf32_rne(centered - hi)
+    b = hi @ lo2.T + hi @ hi.T
+    return np.float32(0.5) * (b + b.T)
+
+
+def krum_pick(g):
+    from multimodal_fl_security_tpu_torch.defenses.krum import KrumDefense
+    from multimodal_fl_security_tpu_torch.ops.gram import sq_dists_from_gram
+
+    krum = KrumDefense({"num_malicious": min(20, (g.shape[0] - 3) // 2)})
+    scores = krum.scores_from_dists(torch.sqrt(sq_dists_from_gram(g)))
+    return int(torch.argsort(scores, stable=True)[0])
+
+
+@pytest.mark.parametrize("c,d,scaled", [(c, d, 0) for c, d in SHAPES]
+                         + [(50, 1000, 20)])
+def test_gram_3xtf32_split_matches_pallas_gram(c, d, scaled):
+    """The kernel's 3xTF32 split, emulated, against ``gram_pallas`` in
+    interpret mode at rtol 1e-5 / atol 1e-4, on the inputs of
+    ``test_gram_matches_pallas_gram`` and on one whose first ``scaled`` rows
+    are scaled x10 (the scaling attack); the Krum pick is the plain
+    version's."""
+    jnp, _, pallas_kernels = jax_ops()
+    u = updates(c, d)
+    u[:scaled] *= 10.0
+    want = np.asarray(pallas_kernels.gram_pallas(
+        jnp.asarray(u), block_d=128, interpret=True))
+    got = gram_3xtf32(u)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    assert krum_pick(torch.from_numpy(got)) == krum_pick(
+        gram_plain(torch.from_numpy(u)))
 
 
 @pytest.mark.parametrize("c,d", SHAPES)
@@ -105,13 +157,18 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,d", [(100, 421_642), (7, 1000), (65, 4099),
-                                 (130, 3001), (1, 33)])
-def test_gram_kernel_matches_plain_on_cuda(c, d):
+@pytest.mark.parametrize("c,d,scaled", [
+    (100, 421_642, 0), (7, 1000, 0), (65, 4099, 0), (130, 3001, 0),
+    (1, 33, 0), (100, 421_642, 20), (130, 3001, 20)])
+def test_gram_kernel_matches_plain_on_cuda(c, d, scaled):
+    """3xTF32 on the tensor cores within 1e-5 max|G| of the f32 plain
+    version, bitwise reproducible and symmetric, with Krum's pick; also
+    with the first ``scaled`` rows scaled x10 (the scaling attack)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     u = torch.from_numpy(updates(c, d, seed=2)).cuda()
+    u[:scaled] *= 10.0
     before = gram.launches
     g = gram(u)
     g_again = gram(u)
@@ -121,3 +178,5 @@ def test_gram_kernel_matches_plain_on_cuda(c, d):
     assert err <= 1e-5 * float(want.abs().max())
     assert torch.equal(g, g_again)  # no atomics: bitwise reproducible
     assert torch.equal(g, g.T)
+    if c >= 5:
+        assert krum_pick(g) == krum_pick(want)
