@@ -12,8 +12,8 @@ paths and fails loudly on anything wrong. Phases, in order:
 2. Build: compiles every ``csrc/*.cu`` with nvcc for sm_90a, one process
    each, all at once (timed; registers, shared memory and spills); requires
    HMMA/HGMMA instructions in the SASS of every tensor-core kernel
-   (``TC_KERNELS``, each instantiation: the Gram's wgmma kernel, the bf16
-   forward, the conv gradients and fc1's forward and backward).
+   (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
+   the bf16 forward, the conv gradients and fc1's forward and backward).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
@@ -44,8 +44,7 @@ paths and fails loudly on anything wrong. Phases, in order:
    (a) each kernel of ``csrc/client_conv.cu``, ``client_dense.cu`` and
    ``client_sgd.cu`` against its plain version on one step's real
    activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
-   and backward; CE; SGD at [100, 421,642]) and K3's raw stem conv at
-   [100, 32, 28*28*8] x [100, 4, 4, 8, 128], in f32 with TF32 off (max
+   and backward; CE; SGD at [100, 421,642]), in f32 with TF32 off (max
    |kernel - plain| <= 1e-5 * max|plain|) and in bf16 (<= 1e-2 * max|plain|,
    one rounding apart; the forward convs, fc1's forward and backward and
    the conv gradients on the tensor-core kernels; each pooled conv's argmax equal
@@ -67,13 +66,21 @@ paths and fails loudly on anything wrong. Phases, in order:
    ``dense_bwd_tc`` and fc2's ``dense_fwd`` and ``dense_bwd``, 76 + 38 on
    the conv gradients' tensor-core kernels, two calls
    bitwise equal, FedAvg test accuracy > 0.5; prints the kernel path's,
-   the mirror's and the engine trainer's ms per call.
+   the mirror's and the engine trainer's ms per call; (d) K3, the raw stem
+   conv, at [100, 32, 28*28*8] x [100, 4, 4, 8, 128]: its path (one
+   ``client_stem_conv`` call in bf16, counted: one ``stem_raw_tc``
+   launch), held to ``client_stem_conv_plain`` in f32 (``conv_fwd``) and
+   bf16 (``stem_raw_tc``) at the tolerances of (a), bf16 bitwise on
+   repeat and, on small integers, bitwise the plain version; both dtypes'
+   times beside grouped ``F.conv2d`` (three timings, the median kept).
 8. The Mosaic probe set (K5): ``benchmarks/mosaic_probe.run_probes()``,
    every probe's kernel path against its plain version (layout, generator
    and carried sums bitwise, the rest within the JAX probe's tolerance);
-   then each probe's kernel and plain times in turns (CUDA events), and per
-   kernel the one PyTorch call that computes the same function, where
-   there is one.
+   each contraction shape's split over k (phases 8 and 9); then each
+   probe's kernel and plain times in turns (CUDA events), each contraction
+   probe's ``torch.matmul`` / ``torch.einsum`` of its own function (median
+   of three), and per kernel the one PyTorch call that computes the same
+   function, where there is one.
 9. The autodiff probe set (K6): ``benchmarks/ad_in_kernel_probe.
    run_probes()``, every probe's gradient through the hand-written backward
    kernels against ``torch.autograd`` of the plain body, at the JAX probe's
@@ -143,6 +150,7 @@ FUSED_SOURCES = {prefix: f"multimodal_fl_security_tpu_torch/csrc/{src}.cu"
                                      ("dense", "client_dense"),
                                      ("client", "client_sgd"))}
 K3_REPLACES = "multimodal_fl_security_tpu/ops/client_conv.py:97"
+K3_SOURCE = "multimodal_fl_security_tpu_torch/csrc/client_stem_raw.cu"
 K4_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:307"
 #: max|kernel - plain| allowed over max|plain|: f32 with TF32 off (the same
 #: products summed in another order) and bf16 (outputs one rounding apart)
@@ -172,9 +180,29 @@ PROBE_KERNELS = {
     "relu_mask_bwd": ("probe_reduce.cu", f"{AD_PROBE}:60",
                       "ad_mask_relu_max"),
 }
+#: each contraction probe's function as one PyTorch call (bf16 operands
+#: cast to f32 first: the probe's function has an f32 result), and its k
+CONTRACT_LIBRARY = {
+    "dot_3d_2d": (torch.matmul, 128),
+    "einsum_brl_rlf": (lambda a, w: torch.matmul(a.reshape(32, -1),
+                                                 w.reshape(-1, 128)), 14336),
+    "batched_dot": (torch.matmul, 256),
+    "outer_wgrad": (lambda a, g: torch.einsum("brl,bf->rlf", a, g), 32),
+    "wgrad_2d": (lambda a, g: torch.matmul(a.T, g), 1792),
+    "bf16_mixed": (lambda a, b: torch.matmul(a.float(), b.float()), 128),
+    "bf16_default_prec": (lambda a, b: torch.matmul(a.float(), b.float()),
+                          128),
+    "outer_wgrad_chunked": (lambda a, g: torch.einsum("brl,bf->rlf", a, g),
+                            32),
+    "dgrad_rhs_T_2d": (lambda g, w: torch.matmul(g, w.T), 128),
+    "dgrad_rhs_T_big": (lambda g, w: torch.matmul(g, w.T), 256),
+    "dgrad_rhs_T_batched": (lambda g, w: torch.matmul(g, w.transpose(1, 2)),
+                            128),
+}
 #: every tensor-core kernel that phase 2 requires HMMA instructions in
-TC_KERNELS = ("gram_tc_kernel", "conv2_fwd_tc_kernel", "stem_fwd_tc_kernel",
-              "conv2_wgrad_tc_kernel", "stem_wgrad_tc_kernel",
+TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
+              "stem_fwd_tc_kernel", "conv2_wgrad_tc_kernel",
+              "stem_wgrad_tc_kernel",
               "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
               "dense_bwd_tc_kernel")
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
@@ -218,27 +246,33 @@ def phase_build() -> None:
         path, log = _build.build(name)
         return path, log, time.perf_counter() - t0
 
-    # One nvcc per source, all started together.
-    modules = {"gram": gram, "sorted_reduce": sorted_reduce,
-               "client_conv": client_conv, "client_dense": client_dense,
-               "client_sgd": client_sgd, "client_dropout": client_dropout,
-               "probe_layout": probe_layout,
-               "probe_contract": probe_contract,
-               "probe_reduce": probe_reduce, "probe_prng": philox}
+    # One nvcc per source, all started together; each library's loader.
+    loaders = {"gram": gram._library,
+               "sorted_reduce": sorted_reduce._library,
+               "client_conv": client_conv._library,
+               "client_stem_raw": client_conv._stem_raw_library,
+               "client_dense": client_dense._library,
+               "client_sgd": client_sgd._library,
+               "client_dropout": client_dropout._library,
+               "probe_layout": probe_layout._library,
+               "probe_contract": probe_contract._library,
+               "probe_reduce": probe_reduce._library,
+               "probe_prng": philox._library}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
-        builds = list(pool.map(build, modules))
-    for module in modules.values():
-        module._library()
+    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
+        builds = list(pool.map(build, loaders))
+    for load in loaders.values():
+        load()
     for path, log, seconds in builds:
         print(f"[build] {path.name} in {seconds:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Function prop" in line:
                 print(f"[build] {line.strip()}")
-    print(f"[build] {len(modules)} sources in "
+    print(f"[build] {len(loaders)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
     check_tensor_cores([p for p, _, _ in builds
                         if p.name.startswith(("libgram-", "libclient_conv-",
+                                              "libclient_stem_raw-",
                                               "libclient_dense-"))])
 
 
@@ -897,15 +931,6 @@ def phase_fused_kernels() -> dict:
     held("sgd momentum [100, 421,642]", mk, mp, f32)
     errs["sgd_update", f32] = held("sgd params [100, 421,642]", pk, pp, f32)
 
-    # K3's own function: the raw 4x4 stride-2 stem conv at 8 channels.
-    x3 = torch.randn((c, 32, 28 * 28 * 8), generator=gen, device="cuda")
-    w4 = 0.1 * torch.randn((c, 4, 4, 8, 128), generator=gen, device="cuda")
-    for dt in (f32, bf16):
-        errs["k3", dt] = held("K3 raw stem [100, 32, 6272]",
-                              cc.client_stem_conv(x3.to(dt), w4.to(dt)),
-                              cc.client_stem_conv_plain(x3.to(dt), w4.to(dt)),
-                              dt)
-
     # Times, at each kernel's dtype (bf16 for the path's kernels, f32 for
     # the CUDA-core conv kernels of the checking mode), with bounds.
     t, t32 = timed[bf16], timed[f32]
@@ -914,10 +939,6 @@ def phase_fused_kernels() -> dict:
     xg = cc._grouped(t["h1"]).contiguous()
     wg = w2.to(bf16).reshape(-1, *w2.shape[2:])
     conv2_flops = 2 * c * 32 * 64 * 32 * 9 * 14 * 14
-    x3b, w4b = x3.to(bf16), w4.to(bf16)
-    x3g = cc._grouped(x3b.view(c, 32, 28, 28, 8).permute(0, 1, 4, 2, 3)
-                      ).contiguous()
-    w4g = w4b.permute(0, 4, 3, 1, 2).reshape(-1, 8, 4, 4).contiguous()
     gw2, gb2 = torch.empty_like(w2), torch.empty_like(b2)
     gw1, gb1 = torch.empty_like(w1), torch.empty_like(b1)
     gwf2, gbf2 = torch.empty_like(v["fc2.weight"]), torch.empty_like(
@@ -1068,7 +1089,7 @@ def phase_fused_kernels() -> dict:
         rows[name] = {
             "name": name, "route": "cuda",
             "source": FUSED_SOURCES[name.split("_")[0]],
-            "replaces": K3_REPLACES if name == "conv_fwd" else K4_REPLACES,
+            "replaces": K4_REPLACES,
             "max_abs_err": errs[err_key[name]], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -1086,7 +1107,7 @@ def phase_fused_kernels() -> dict:
           f"and the sum) {ref_runs[1]:.4f} ms (runs {ref_runs[0]:.4f}-"
           f"{ref_runs[2]:.4f})")
     # The other use of a kernel on the path (the stem's weight gradient),
-    # with its library call and bound, and K3's raw conv.
+    # with its library call and bound.
     dz1g = cc._grouped(cc._dense_dz(t["dh1"], t["h1"], t["a1"], 28, 28)
                        ).to(bf16).contiguous()
     live1 = int(((t["h1"] > 0) & (t["dh1"] != 0)).sum())
@@ -1100,12 +1121,6 @@ def phase_fused_kernels() -> dict:
                            xsg, w1g.shape, dz1g, padding=1, groups=c),
                        nbytes(x, t["dh1"], t["h1"], t["a1"], w1c, b1c),
                        2 * live1 * (9 + 1)),
-        "K3 raw stem": (lambda: cc.client_stem_conv(x3b, w4b),
-                        lambda: cc.client_stem_conv_plain(x3b, w4b),
-                        lambda: F.conv2d(x3g, w4g, stride=2, padding=1,
-                                         groups=c),
-                        nbytes(x3b, w4b) + 2 * c * 32 * 14 * 14 * 128,
-                        2 * c * 32 * 14 * 14 * 128 * 128),
     }
     for name, (kern, plain, lib, moved, flops) in extra.items():
         ms, plain_ms = turns(kern, plain)
@@ -1168,6 +1183,83 @@ def phase_fused_path() -> dict:
             **{k: check["kernel_launches"][k] for k in cuda_core}}
 
 
+def phase_k3() -> dict:
+    """7d: K3, the raw stem conv, at [100, 32, 28*28*8] x [100, 4, 4, 8,
+    128]; returns stem_raw_tc's row, its launches those of K3's path (one
+    ``client_stem_conv`` call in bf16, every count set to 0 just before)."""
+    import torch.nn.functional as F
+
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+    from multimodal_fl_security_tpu_torch.ops._launch import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    c, b = 100, 32
+    gen = torch.Generator("cuda").manual_seed(9)
+    x = torch.randn((c, b, 28 * 28 * 8), generator=gen, device="cuda")
+    w4 = 0.1 * torch.randn((c, 4, 4, 8, 128), generator=gen, device="cuda")
+    xb, wb = x.to(bf16), w4.to(bf16)
+    reset_kernel_launches()
+    y = cc.client_stem_conv(xb, wb)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    print(f"[K3] path: one client_stem_conv call in bf16, launches by kernel "
+          f"{launches}")
+    if launches != {**dict.fromkeys(launches, 0), "stem_raw_tc": 1}:
+        raise AssertionError(f"K3 in bf16 did not run stem_raw_tc once: "
+                             f"{launches}")
+    if y.shape != (c, b, 14, 14, 128) or y.dtype != bf16 or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"K3's output: {tuple(y.shape)} {y.dtype}, or "
+                             f"not finite")
+    errs = {dt: held("K3 raw stem [100, 32, 6272]",
+                     cc.client_stem_conv(x.to(dt), w4.to(dt)),
+                     cc.client_stem_conv_plain(x.to(dt), w4.to(dt)), dt)
+            for dt in (f32, bf16)}
+    if not torch.equal(y, cc.client_stem_conv(xb, wb)):
+        raise AssertionError("K3 in bf16: two calls differ")
+    xi = torch.randint(-3, 4, x.shape, generator=gen, device="cuda").to(bf16)
+    wi = torch.randint(-2, 3, w4.shape, generator=gen, device="cuda").to(bf16)
+    got = cc.client_stem_conv(xi, wi)
+    with torch.backends.cudnn.flags(enabled=False):  # exact on integers
+        want = cc.client_stem_conv_plain(xi, wi)
+    if not torch.equal(got, want):
+        raise AssertionError("K3 in bf16 on integer operands differs from "
+                             "its plain version")
+    print(f"[K3] bf16: two calls bitwise equal; on integer operands (max "
+          f"|sum| {float(want.float().abs().max()):.0f}) bitwise the plain "
+          f"version")
+    row = None
+    for dt in (f32, bf16):
+        xd, wd = x.to(dt), w4.to(dt)
+        xg = cc._grouped(xd.view(c, b, 28, 28, 8).permute(0, 1, 4, 2, 3)
+                         ).contiguous()
+        wg = wd.permute(0, 4, 3, 1, 2).reshape(-1, 8, 4, 4).contiguous()
+        ms, plain_ms = turns(lambda: cc.client_stem_conv(xd, wd),
+                             lambda: cc.client_stem_conv_plain(xd, wd))
+        lib_runs = sorted(time_ms(lambda _: F.conv2d(
+            xg, wg, stride=2, padding=1, groups=c), None) for _ in range(3))
+        moved = nbytes(xd, wd) + xd.element_size() * c * b * 196 * 128
+        bound_ms, bound_by = bound(moved, 2 * c * b * 196 * 128 * 128, dt)
+        kernel = "stem_raw_tc" if dt == bf16 else "conv_fwd"
+        print(f"[K3] {kernel} {'bf16' if dt == bf16 else 'f32'}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (grouped "
+              f"F.conv2d) {lib_runs[1]:.4f} ms (runs {lib_runs[0]:.4f}-"
+              f"{lib_runs[2]:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
+        if dt == bf16:
+            row = {"name": "stem_raw_tc", "route": "cuda",
+                   "source": K3_SOURCE, "replaces": K3_REPLACES,
+                   "launches": launches["stem_raw_tc"],
+                   "max_abs_err": errs[bf16], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_runs[1]}
+    del x, w4, xb, wb, y, xi, wi, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_kernels(what: str, result: dict, f32_steps: int = 0,
                   tc_steps: int = 0) -> None:
     """Every launch of the conv and dense wrappers went through the kernel
@@ -1176,7 +1268,8 @@ def check_kernels(what: str, result: dict, f32_steps: int = 0,
     the CUDA-core kernels, in bf16 all on the tensor-core ones but fc2's
     (f32 weights)."""
     want = {"conv_fwd": 2 * f32_steps, "conv2_fwd_tc": tc_steps,
-            "stem_fwd_tc": tc_steps, "conv_wgrad": 2 * f32_steps,
+            "stem_fwd_tc": tc_steps, "stem_raw_tc": 0,
+            "conv_wgrad": 2 * f32_steps,
             "conv_wgrad_tc": 2 * tc_steps, "conv_dgrad": f32_steps,
             "conv_dgrad_tc": tc_steps, "dense_fwd": 2 * f32_steps + tc_steps,
             "dense_fwd_tc": tc_steps, "dense_bwd": 2 * f32_steps + tc_steps,
@@ -1206,13 +1299,20 @@ def probe_wrappers() -> dict:
 def run_counted(run, what: str) -> dict:
     """A probe set's ``run_probes`` on the card with every probe kernel's
     count set to 0 just before; raises if a probe failed, else returns the
-    launches by wrapper (and the results, under "results")."""
+    launches by wrapper (and the results, under "results"). Prints each
+    contraction shape's split over k."""
+    from multimodal_fl_security_tpu_torch.ops.probe_contract import contract
+
     wrappers = probe_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    contract.plans.clear()
     results = run("cuda")
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in wrappers.items()}
+    for shape, (splits, chunk) in contract.plans.items():
+        print(f"[{what}] contract (batch, m, n, k) {shape}: {splits} "
+              f"split(s) of k, chunk {chunk}")
     failed = [r for r in results if r["status"] != "PASS"]
     for r in failed:
         print(f"[{what}] FAIL {r['probe']}: {r['detail']}")
@@ -1248,14 +1348,26 @@ def phase_probes() -> tuple:
     run = run_counted(mp.run_probes, "K5")
     errs = {r["probe"]: r["max_abs_err"] for r in run["results"]}
     gen = torch.Generator("cuda").manual_seed(5)
-    inputs, times = {}, {}
+    inputs, times, contract_lib = {}, {}, {}
     for probe in mp.PROBES:
         args = inputs[probe.name] = probe.make(gen, torch.device("cuda"))
         times[probe.name] = turns(lambda: probe.kernel(*args),
                                   lambda: probe.plain(*args))
+        lib_text = ""
+        if probe.name in CONTRACT_LIBRARY:
+            lib, k = CONTRACT_LIBRARY[probe.name]
+            runs = sorted(time_ms(lambda _: lib(*args), None)
+                          for _ in range(3))
+            contract_lib[probe.name] = runs[1]
+            outputs = lib(*args).numel()
+            bound_ms, bound_by = bound(nbytes(*args) + 4 * outputs,
+                                       2 * outputs * k)
+            lib_text = (f", library {runs[1]:.4f} ms (runs {runs[0]:.4f}-"
+                        f"{runs[2]:.4f}), bound {bound_ms:.4f} ms "
+                        f"({bound_by})")
         print(f"[K5] {probe.name} ({probe.family}): kernel "
               f"{times[probe.name][0]:.4f} ms, plain {times[probe.name][1]:.4f}"
-              f" ms, max|kernel-plain| {errs[probe.name]:.3g}")
+              f" ms{lib_text}, max|kernel-plain| {errs[probe.name]:.3g}")
     for family in ("layout", "contract", "reduce", "prng"):
         names = [p.name for p in mp.PROBES if p.family == family]
         print(f"[K5] family {family}: kernel {sum(times[n][0] for n in names):.4f}"
@@ -1299,6 +1411,10 @@ def phase_probes() -> tuple:
         library_ms = time_ms(lambda _: lib(), None) if lib else None
         rows[name] = probe_row(name, *times[probe], library_ms, moved, ops,
                                errs[probe])
+    # The contraction at its longest k, beside its library call.
+    rows["contract"]["ms_einsum_brl_rlf"] = times["einsum_brl_rlf"][0]
+    rows["contract"]["library_ms_einsum_brl_rlf"] = \
+        contract_lib["einsum_brl_rlf"]
     return rows, run["launches"]
 
 
@@ -1448,6 +1564,7 @@ def main() -> None:
     robust = phase_robust_rounds()
     fused_rows = phase_fused_kernels()
     fused = phase_fused_path()
+    k3_row = phase_k3()
     probe_rows, k5 = phase_probes()
     ad_rows, k6 = phase_ad_probes()
     drop_row, drop_launches = phase_dropout()
@@ -1462,10 +1579,11 @@ def main() -> None:
     print(f"[paths] gram launches: {north_star} (Krum north star) + "
           f"{robust['gram']} (R4); sorted_reduce launches: "
           f"{robust['sorted_reduce']} (R1-R4); fused local training (one "
-          f"call, 38 steps): {fused}; K5 probes: {k5}; K6 probes: {k6}; "
+          f"call, 38 steps): {fused}; K3 (one call): "
+          f"{k3_row['launches']}; K5 probes: {k5}; K6 probes: {k6}; "
           f"dropout (one call, 38 steps): {drop_launches}")
-    rows = [gram_row, sort_row, *fused_rows.values(), *probe_rows.values(),
-            *ad_rows.values(), drop_row]
+    rows = [gram_row, sort_row, *fused_rows.values(), k3_row,
+            *probe_rows.values(), *ad_rows.values(), drop_row]
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")

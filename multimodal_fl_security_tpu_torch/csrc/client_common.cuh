@@ -119,3 +119,72 @@ __device__ __forceinline__ float mft_bf16_at(const uint4& v, int e) {
   return __bfloat162float(__ushort_as_bfloat16(
       static_cast<unsigned short>(e & 1 ? w >> 16 : w & 0xffffu)));
 }
+
+// ------------------------------------------------ copies and wgmma
+// (client_stem_raw.cu and probe_contract.cu)
+
+// 16 bytes from global src (16-byte aligned) to shared dst, of which the
+// first src_bytes are read and the rest zeroed; 0 reads nothing.
+__device__ __forceinline__ void mft_cp_async16(uint32_t dst, const void* src,
+                                               int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mft_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's copy groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void mft_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The generic proxy's shared-memory writes (stores, cp.async), made
+// visible to the async proxy (wgmma's operand reads).
+__device__ __forceinline__ void mft_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mft_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mft_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void mft_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// A wgmma shared-memory descriptor without swizzle (core matrices of 8 rows
+// x 16 bytes): the start address, and the byte distances to the next core
+// matrix along K (lbo) and along M or N (sbo).
+__device__ __forceinline__ uint64_t mft_wgmma_desc(uint32_t addr, int lbo,
+                                                   int sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+// ------------------------------------------------ convolution arguments
+// (client_conv.cu and client_stem_raw.cu; ctypes mirrors this layout)
+
+struct ConvGeom {
+  int batch, cin, h, w;      // input: samples per client, channels, rows, cols
+  int cout, k, stride, pad;  // the convolution
+  int oh, ow;                // its output size (before any pooling)
+  int pool;                  // 1: 2x2 max + bias + relu epilogue; 0: raw
+  int cdt;                   // compute dtype: operands rounded to it
+};
+
+struct MftConvArgs {
+  int clients;
+  ConvGeom g;
+};

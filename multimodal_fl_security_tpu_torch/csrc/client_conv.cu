@@ -4,7 +4,8 @@
 //
 // Replaces, in multimodal_fl_security_tpu:
 //  - ops/client_conv.py::client_stem_conv (K3, the Pallas kernel _stem_kernel):
-//    the raw 4x4 stride-2 stem convolution (mode raw);
+//    the raw 4x4 stride-2 stem convolution (mode raw) in f32, the checking
+//    mode (bf16 runs client_stem_raw.cu's stem_raw_tc);
 //  - the convolution parts of ops/fused_kernel.py::fused_local_train (K4):
 //    the stem and conv2 of forward_impl with their epilogues, the stem's and
 //    conv2's weight gradients (with the stem's fold of its four embedded
@@ -28,7 +29,7 @@
 //    the compute dtype bf16, on the tensor cores (see their section below).
 //    conv_wgrad and conv_dgrad serve f32, the checking mode.
 //  - conv2_fwd_tc, stem_fwd_tc: the pooled forward for bf16 on the tensor
-//    cores. conv_fwd serves f32 and the raw mode (K3) in either dtype.
+//    cores. conv_fwd serves f32, the raw mode (K3) included.
 //
 // What bounds the CUDA-core kernels: at the north-star shapes (100 clients
 // x 32 samples per step) conv2's forward is 2*9*32*64*196 = 7.2 MFLOP per
@@ -52,19 +53,8 @@
 
 namespace cg = cooperative_groups;
 
-// The geometry passed from Python (ctypes mirrors this layout).
-struct ConvGeom {
-  int batch, cin, h, w;      // input: samples per client, channels, rows, cols
-  int cout, k, stride, pad;  // the convolution
-  int oh, ow;                // its output size (before any pooling)
-  int pool;                  // 1: 2x2 max + bias + relu epilogue; 0: raw
-  int cdt;                   // compute dtype: operands rounded to it
-};
-
-struct MftConvArgs {
-  int clients;
-  ConvGeom g;
-};
+// The geometry passed from Python: ConvGeom and MftConvArgs, in
+// client_common.cuh.
 
 namespace {
 

@@ -61,12 +61,13 @@ def check(lib: ctypes.CDLL, err: int, what: str, prefix: str) -> None:
 #: kernels ``conv2_fwd_tc``, ``stem_fwd_tc``, ``conv_wgrad_tc`` (conv2's and
 #: the stem's instantiations), ``conv_dgrad_tc``, ``dense_fwd_tc`` and
 #: ``dense_bwd_tc`` (fc2, with f32 weights, stays on ``dense_fwd`` and
-#: ``dense_bwd``); the raw mode (K3) runs ``conv_fwd`` in either dtype. Each
-#: wrapper's ``.launches`` counts all of its own.
+#: ``dense_bwd``); the raw mode (K3) runs ``stem_raw_tc``
+#: (``csrc/client_stem_raw.cu``) in bf16. Each wrapper's ``.launches`` counts
+#: all of its own.
 KERNEL_LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("conv_fwd", "conv2_fwd_tc", "stem_fwd_tc", "conv_wgrad", "conv_wgrad_tc",
-     "conv_dgrad", "conv_dgrad_tc", "dense_fwd", "dense_fwd_tc", "dense_bwd",
-     "dense_bwd_tc"), 0)
+    ("conv_fwd", "conv2_fwd_tc", "stem_fwd_tc", "stem_raw_tc", "conv_wgrad",
+     "conv_wgrad_tc", "conv_dgrad", "conv_dgrad_tc", "dense_fwd",
+     "dense_fwd_tc", "dense_bwd", "dense_bwd_tc"), 0)
 
 
 def count(kernel: str) -> None:

@@ -4,8 +4,9 @@ Counterpart of ``multimodal_fl_security_tpu/ops/client_conv.py``
 (``client_stem_conv``, K3) and of the convolution parts of
 ``ops/fused_kernel.py::fused_local_train`` (K4; ``fused_train.py::
 forward_impl``'s stem and conv2 and their gradients). Every wrapper here
-launches the hand-written kernel ``csrc/client_conv.cu`` for CUDA tensors,
-or raises, and runs its ``*_plain`` version for CPU tensors.
+launches a hand-written kernel of ``csrc/client_conv.cu`` (or, for K3 in
+bf16, ``csrc/client_stem_raw.cu``) for CUDA tensors, or raises, and runs its
+``*_plain`` version for CPU tensors.
 
 Tensors are passed as logical ``[C, B, channels, rows, cols]`` views of any
 strides (a step's batch of the resident images, an NHWC map permuted to
@@ -84,6 +85,21 @@ def _library() -> ctypes.CDLL:
     lib.mft_conv_fwd_tc_kind.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _stem_raw_library() -> ctypes.CDLL:
+    lib = _build.load("client_stem_raw")
+    p = ctypes.POINTER(MftView)
+    args = ctypes.POINTER(ConvArgs)
+    lib.mft_stem_raw_tc.argtypes = [p] * 3 + [args, ctypes.c_int,
+                                              ctypes.c_void_p]
+    lib.mft_stem_raw_tc.restype = ctypes.c_int
+    lib.mft_stem_raw_tc_takes.argtypes = [args, p]
+    lib.mft_stem_raw_tc_takes.restype = ctypes.c_int
+    lib.mft_client_stem_raw_error_string.argtypes = [ctypes.c_int]
+    lib.mft_client_stem_raw_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -170,11 +186,11 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     [C, C_out, C_in, K, K]. With ``pool``: then the 2x2 window max, ``b``
     [C, C_out] and relu, returning the pooled map [C, B, C_out, OH/2, OW/2]
     and its argmax (uint8, q = di*2 + dj); without: the raw output and None.
-    Outputs are in ``dtype``, stored NHWC when ``channels_last``. f32 and
-    the raw mode (K3) run the CUDA-core kernel ``conv_fwd``; the pooled
-    bf16 forward runs a tensor-core kernel, ``conv2_fwd_tc`` or
-    ``stem_fwd_tc`` (see :func:`_fwd_kernel_for`). ``conv_fwd.launches``
-    counts the launches of all three, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    Outputs are in ``dtype``, stored NHWC when ``channels_last``. f32 runs
+    the CUDA-core kernel ``conv_fwd``; bf16 a tensor-core kernel,
+    ``conv2_fwd_tc`` or ``stem_fwd_tc`` pooled and ``stem_raw_tc`` raw (see
+    :func:`_fwd_kernel_for`). ``conv_fwd.launches`` counts the launches of
+    all four, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_fwd_plain(x, w, b, stride=stride, pad=pad, pool=pool,
                               dtype=dtype, channels_last=channels_last)
@@ -183,17 +199,25 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     a = _geom(x.shape, w.shape, stride, pad, pool, dtype)
     lib = _library()
     xv = view(x, _IMAGE_AXES)
-    kernel = _fwd_kernel_for(lib, a, xv)
+    kernel = _fwd_kernel_for(lib, a, xv, channels_last)
     ph, pw = (a.g.oh // 2, a.g.ow // 2) if pool else (a.g.oh, a.g.ow)
     shape = (x.shape[0], x.shape[1], w.shape[1], ph, pw)
     out = _alloc(shape, dtype, device, channels_last)
     arg = _alloc(shape, torch.uint8, device, channels_last) if pool else None
-    views = [xv, view(w, _WEIGHT_AXES), view(b if pool else None, _BIAS_AXES),
-             view(out, _IMAGE_AXES), view(arg, _IMAGE_AXES)]
-    entry = "mft_conv_fwd" if kernel == "conv_fwd" else "mft_conv_fwd_tc"
-    err = getattr(lib, entry)(*[ctypes.byref(v) for v in views],
-                              ctypes.byref(a), device.index, stream_of(x))
-    check(lib, err, kernel, "client_conv")
+    if kernel == "stem_raw_tc":
+        lib, prefix = _stem_raw_library(), "client_stem_raw"
+        views = [xv, view(w, _WEIGHT_AXES), view(out, _IMAGE_AXES)]
+        err = lib.mft_stem_raw_tc(*[ctypes.byref(v) for v in views],
+                                  ctypes.byref(a), device.index, stream_of(x))
+    else:
+        prefix = "client_conv"
+        views = [xv, view(w, _WEIGHT_AXES),
+                 view(b if pool else None, _BIAS_AXES),
+                 view(out, _IMAGE_AXES), view(arg, _IMAGE_AXES)]
+        entry = "mft_conv_fwd" if kernel == "conv_fwd" else "mft_conv_fwd_tc"
+        err = getattr(lib, entry)(*[ctypes.byref(v) for v in views],
+                                  ctypes.byref(a), device.index, stream_of(x))
+    check(lib, err, kernel, prefix)
     count(kernel)
     conv_fwd.launches += 1
     return out, arg
@@ -206,18 +230,33 @@ conv_fwd.launches = 0
 _TC_NONE, _TC_CONV2 = 0, 1
 
 
-def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView) -> str:
-    """The forward kernel for ``a``: ``conv_fwd`` for f32 and for the raw
-    mode; for the pooled bf16 forward the tensor-core one, which takes a 3x3
-    SAME stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14),
+def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
+                    channels_last: bool) -> str:
+    """The forward kernel for ``a``: ``conv_fwd`` for f32. For bf16 a
+    tensor-core one: raw (K3), ``stem_raw_tc``, which takes K3's geometry
+    only (4x4, stride 2, pad 1, 28x28x8 -> 14x14x128, ``x`` in bf16, NHWC
+    with 16-byte aligned samples, the output NHWC); pooled, one that takes a 3x3 SAME
+    stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14),
     ``conv2_fwd_tc``, or a stem's (1-8 -> 32 channels, ``x`` in f32),
-    ``stem_fwd_tc``. Any other pooled bf16 call raises: it never drops to
-    the CUDA-core kernel."""
-    if a.g.cdt == DTYPE_CODES[torch.float32] or not a.g.pool:
+    ``stem_fwd_tc``. Any other bf16 call raises: it never drops to the
+    CUDA-core kernel."""
+    g = a.g
+    if g.cdt == DTYPE_CODES[torch.float32]:
         return "conv_fwd"
+    if not g.pool:
+        if channels_last and _stem_raw_library().mft_stem_raw_tc_takes(
+                ctypes.byref(a), ctypes.byref(x)):
+            return "stem_raw_tc"
+        raise ValueError(
+            f"conv_fwd raw in bf16 runs on the tensor-core kernel "
+            f"stem_raw_tc, which takes K3's geometry only: 4x4, stride 2, "
+            f"pad 1, 28x28x8 -> 14x14x128, x in bf16 and NHWC with 16-byte "
+            f"aligned samples, the output NHWC; got {g.cin} -> {g.cout} at "
+            f"{g.h}x{g.w}, k {g.k}, stride {g.stride}, pad {g.pad}, x dtype "
+            f"code {x.dtype}, x strides {tuple(x.st)}, channels_last "
+            f"{channels_last}")
     kind = lib.mft_conv_fwd_tc_kind(ctypes.byref(a), ctypes.byref(x))
     if kind == _TC_NONE:
-        g = a.g
         raise ValueError(
             f"conv_fwd pooled in bf16 runs on a tensor-core kernel, which "
             f"takes a 3x3 SAME stride-1 conv2 (32 -> 64 at 14x14) or stem "
@@ -400,7 +439,8 @@ def client_stem_conv(x_flat: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     [C, 4, 4, cin, 128] (HWIO) -> the per-client 4x4, stride-2, pad-1
     convolution [C, B, 14, 14, 128], no epilogue, in ``x_flat``'s dtype
     (bf16 or f32; f32 accumulation). Runs :func:`conv_fwd`'s kernel on CUDA
-    and the plain version on the CPU."""
+    (``stem_raw_tc`` in bf16, ``conv_fwd`` in f32) and the plain version on
+    the CPU."""
     if x_flat.device.type == "cpu":
         return client_stem_conv_plain(x_flat, w4)
     x, w = _stem_operands(x_flat, w4)

@@ -11,12 +11,20 @@ f32) for CPU tensors.
 be two axes, ``a`` ``[batch, m, ko, ki]`` with ``b`` ``[batch, ko, ki, n]``,
 when they do not merge into one stride. Operands are f32 or bf16; products
 and sums are f32, over k in a fixed order.
+
+A block of the kernel computes a 64 x 64 tile of the output. When the
+tiles of a call are too few to fill the card, :func:`plan_splits` cuts k
+into chunks, from the shape alone: each block sums one chunk, and a second
+kernel adds the chunks' partials in chunk order, so two calls are bitwise
+equal.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Tuple
 
 import torch
 
@@ -36,9 +44,26 @@ class _Operand(ctypes.Structure):
                 ("pad_", ctypes.c_int)]
 
 
-class _Output(ctypes.Structure):
-    _fields_ = [("ptr", ctypes.c_void_p), ("sb", ctypes.c_longlong),
-                ("sm", ctypes.c_longlong), ("sn", ctypes.c_longlong)]
+#: the kernel's output tile (rows and columns) and its k-slice
+TILE, TILE_K = 64, 16
+#: the H100's SMs: a call of fewer tiles splits k
+SMS = 132
+#: blocks a split call aims at: two for each SM
+TARGET_BLOCKS = 2 * SMS
+
+
+def plan_splits(batch: int, m: int, n: int, k: int) -> Tuple[int, int]:
+    """(splits, chunk) for a ``[batch, m, k] x [batch, k, n]`` call: k is
+    cut into ``splits`` chunks of ``chunk`` (the last may be shorter, none is
+    empty), in order. One chunk (``chunk = k``) when the call's tiles fill
+    the card; else about :data:`TARGET_BLOCKS` blocks, each chunk a multiple
+    of :data:`TILE_K`. Depends on the shape alone."""
+    tiles = batch * math.ceil(m / TILE) * math.ceil(n / TILE)
+    if tiles >= SMS or k <= TILE_K:
+        return 1, k
+    want = math.ceil(TARGET_BLOCKS / tiles)
+    chunk = math.ceil(math.ceil(k / want) / TILE_K) * TILE_K
+    return math.ceil(k / chunk), chunk
 
 
 @functools.cache
@@ -46,7 +71,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("probe_contract")
     i = ctypes.c_int
     lib.mft_contract.argtypes = [ctypes.POINTER(_Operand)] * 2 + [
-        ctypes.POINTER(_Output)] + [i] * 6 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 2 + [i] * 8 + [ctypes.c_void_p]
     lib.mft_contract.restype = i
     lib.mft_probe_contract_error_string.argtypes = [i]
     lib.mft_probe_contract_error_string.restype = ctypes.c_char_p
@@ -79,7 +104,9 @@ def contract_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``C[b, m, n] = sum_k A[b, m, k] B[b, k, n]`` as a new contiguous f32
     ``[batch, m, n]``; see the module doc. ``contract.launches`` counts
-    kernel launches."""
+    kernel launches (a split call's two kernels as one), and
+    ``contract.plans`` maps each shape launched, ``(batch, m, n, k)``, to its
+    ``(splits, chunk)``."""
     if a.device.type == "cpu":
         return contract_plain(a, b)
     batch, m, n, ko, ki = _shapes(a, b)
@@ -94,16 +121,22 @@ def contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                     sa[-1], DTYPE_CODES[a.dtype])
     op_b = _Operand(b.data_ptr(), sb[0], sb[-1], sb[1] if split else 0,
                     sb[-2], DTYPE_CODES[b.dtype])
+    k = ko * ki
+    splits, chunk = plan_splits(batch, m, n, k)
     out = torch.empty((batch, m, n), dtype=torch.float32, device=device)
-    so = out.stride()
-    res = _Output(out.data_ptr(), so[0], so[1], so[2])
+    scratch = torch.empty((splits, batch, m, n), dtype=torch.float32,
+                          device=device) if splits > 1 else None
     lib = _library()
     err = lib.mft_contract(ctypes.byref(op_a), ctypes.byref(op_b),
-                           ctypes.byref(res), batch, m, n, ko * ki, ki,
-                           device.index, stream_of(a))
+                           out.data_ptr(),
+                           scratch.data_ptr() if splits > 1 else None, batch,
+                           m, n, k, ki, chunk, splits, device.index,
+                           stream_of(a))
     check(lib, err, "contract", "probe_contract")
     contract.launches += 1
+    contract.plans[batch, m, n, k] = (splits, chunk)
     return out
 
 
 contract.launches = 0
+contract.plans = {}

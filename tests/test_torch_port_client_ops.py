@@ -136,6 +136,33 @@ def test_client_stem_conv_matches_k3():
                                    atol=1e-4)
 
 
+def test_client_stem_conv_bf16_matches_k3():
+    """bf16 in, bf16 out: the JAX kernel sums each output in f32 on the MXU
+    (interpret mode here) and rounds it once; the port's plain version (the
+    CPU path of the kernel ``stem_raw_tc`` is held to on the card) sums the
+    same products in f32 in another order and rounds once. So each output
+    agrees within one bf16 rounding, 2^-7 of its value, and almost all are
+    equal."""
+    jax, jnp, *_ = jax_side()
+    from multimodal_fl_security_tpu.ops.client_conv import (
+        client_stem_conv as jax_stem,
+    )
+
+    rng = np.random.RandomState(3)
+    c, b = 3, 4
+    x = rng.normal(size=(c, b, 28 * 28 * 8)).astype(np.float32)
+    w4 = (0.1 * rng.normal(size=(c, 4, 4, 8, 128))).astype(np.float32)
+    got = client_stem_conv(torch.from_numpy(x).to(torch.bfloat16),
+                           torch.from_numpy(w4).to(torch.bfloat16))
+    want = np.asarray(jax_stem(jnp.asarray(x, jnp.bfloat16),
+                               jnp.asarray(w4, jnp.bfloat16),
+                               interpret=True)).astype(np.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == (c, b, 14, 14, 128)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0.0)
+    assert float(np.mean(got != want)) < 1e-3
+
+
 def test_pooled_stem_is_k3_on_the_embedded_kernel(case):
     """The stem's epilogue form equals K3's raw conv on w4, then the max
     over w4's four channel groups, the bias and the relu (ConvPoolFused)."""
@@ -661,8 +688,8 @@ def dense_case(gen, c, rows, k, f, dtype, ints=False):
 @pytest.mark.cuda
 def test_kernel_choice_follows_the_dtype(cuda):
     """f32 launches the CUDA-core kernels, bf16 the tensor-core ones (the
-    raw mode, K3, stays on conv_fwd in both); each kernel has its own count,
-    the wrappers count all of theirs."""
+    raw mode, K3: conv_fwd in f32, stem_raw_tc in bf16); each kernel has its
+    own count, the wrappers count all of theirs."""
     counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         for layer, cin in TC_CASES:
@@ -714,7 +741,8 @@ def test_kernel_choice_follows_the_dtype(cuda):
                     "conv_dgrad_tc": dgrad * int(tc)}
             want["conv_fwd" if not tc else fwd_tc] = 1
             assert counts[dtype, layer, cin] == want, (dtype, layer, cin)
-        assert counts[dtype, "raw", 8] == {**zero, "conv_fwd": 1}
+        assert counts[dtype, "raw", 8] == {
+            **zero, ("stem_raw_tc" if tc else "conv_fwd"): 1}
         assert counts[dtype, "dense"] == {**zero, "dense_fwd": int(not tc),
                                           "dense_fwd_tc": int(tc)}
         assert counts[dtype, "dense_bwd"] == {
@@ -933,3 +961,69 @@ def test_client_stem_conv_kernel_matches_plain(cuda, c, b, dtype):
     assert got.shape == (c, b, 14, 14, 128) and got.dtype == dtype
     assert torch.equal(got, client_stem_conv(x, w4))
     close(got, want, dtype, scale=float(want.float().abs().max()))
+
+
+#: (C, B) of K3 on stem_raw_tc: B = 1 and 7 end each client in a ragged
+#: tile (196 and 1,372 rows), C = 100 at B = 4 and 7 puts client boundaries
+#: inside the persistent blocks' ranges (700 and 1,100 tiles), and every
+#: tile's first rows read the zero-padded border
+STEM_RAW_CASES = [(1, 1), (3, 4), (3, 7), (1, 32), (100, 4), (100, 7),
+                  (100, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b", STEM_RAW_CASES)
+def test_stem_raw_tc_matches_plain(cuda, c, b):
+    """bf16 K3 runs stem_raw_tc: within one rounding of the plain version on
+    random operands, bitwise equal to it on small integers (every sum exact
+    in f32, rounded once to bf16 by both; the plain version without cuDNN),
+    and two calls bitwise equal."""
+    bf16 = torch.bfloat16
+    x = torch.randn((c, b, 28 * 28 * 8), generator=cuda,
+                    device="cuda").to(bf16)
+    w4 = (0.1 * torch.randn((c, 4, 4, 8, 128), generator=cuda,
+                            device="cuda")).to(bf16)
+    xi = torch.randint(-3, 4, x.shape, generator=cuda, device="cuda").to(bf16)
+    wi = torch.randint(-2, 3, w4.shape, generator=cuda,
+                       device="cuda").to(bf16)
+    before = KERNEL_LAUNCHES["stem_raw_tc"]
+    got, again, got_i = (client_stem_conv(x, w4), client_stem_conv(x, w4),
+                         client_stem_conv(xi, wi))
+    assert KERNEL_LAUNCHES["stem_raw_tc"] == before + 3
+    want = client_stem_conv_plain(x, w4)
+    with torch.backends.cudnn.flags(enabled=False):
+        want_i = client_stem_conv_plain(xi, wi)
+    torch.cuda.synchronize()
+    assert got.shape == (c, b, 14, 14, 128) and got.dtype == bf16
+    assert got.is_contiguous()
+    assert torch.equal(got, again)
+    close(got, want, bf16, scale=float(want.float().abs().max()))
+    assert float(want_i.float().abs().max()) > 50  # sums large enough to test
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+def test_stem_raw_tc_refuses_other_geometries(cuda):
+    """A bf16 raw conv outside K3's geometry raises and launches nothing: it
+    never drops to the CUDA-core kernel."""
+    bf16 = torch.bfloat16
+    x = torch.randn((3, 4, 6273), generator=cuda, device="cuda").to(bf16)
+    w4 = torch.randn((3, 4, 4, 8, 128), generator=cuda, device="cuda").to(bf16)
+    x1 = torch.randn((3, 4, 784), generator=cuda, device="cuda").to(bf16)
+    w1 = torch.randn((3, 4, 4, 1, 128), generator=cuda,
+                     device="cuda").to(bf16)
+    xc = x[:, :, :6272].view(3, 4, 28, 28, 8).permute(0, 1, 4, 2, 3)
+    wc = w4.permute(0, 4, 3, 1, 2)  # (out, in, kh, kw)
+    calls = {
+        "one input channel": lambda: client_stem_conv(x1, w1),
+        "a misaligned x_flat": lambda: client_stem_conv(x[:, :, 1:], w4),
+        "stride 1": lambda: conv_fwd(xc, wc, None, stride=1, pool=False,
+                                     dtype=bf16, channels_last=True),
+        "an NCHW output": lambda: conv_fwd(xc, wc, None, stride=2,
+                                           pool=False, dtype=bf16),
+    }
+    before = (dict(KERNEL_LAUNCHES), conv_fwd.launches)
+    for what, call in calls.items():
+        with pytest.raises(ValueError, match="stem_raw_tc"):
+            call()
+    assert (dict(KERNEL_LAUNCHES), conv_fwd.launches) == before

@@ -13,8 +13,14 @@ bf16 contractions rtol 2e-2 / atol 2e-1, reductions the JAX probe's own.
 the plain Philox4x32-10 to the Random123 known answers and checks that a
 reseed reproduces the bits.
 
-The ``cuda`` cases hold every probe's kernel to its plain version and the
-Philox kernel bitwise to the plain generator; they skip without a card.
+The contraction kernel's split over k is planned in Python from the shape
+alone (``plan_splits``); its cases check that the chunks cover k once, in
+order, and that the probes' small-tile shapes fill the card.
+
+The ``cuda`` cases hold every probe's kernel to its plain version, the
+contraction at every K5/K6 shape and at ragged, split and unsplit shapes
+to ``contract_plain`` and to itself bitwise, and the Philox kernel bitwise
+to the plain generator; they skip without a card.
 """
 
 import functools
@@ -31,6 +37,13 @@ from multimodal_fl_security_tpu_torch.ops.philox import (
     philox4x32_plain,
     philox_bits_plain,
     philox_draw_twice,
+)
+from multimodal_fl_security_tpu_torch.ops.probe_contract import (
+    TILE,
+    TILE_K,
+    contract,
+    contract_plain,
+    plan_splits,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -148,6 +161,46 @@ def test_draws_differ_by_seed_step_stream_and_client():
     assert torch.equal(base.reshape(2, -1), wide.reshape(2, -1))
 
 
+#: (batch, m, n, k) of every contraction the K5 and K6 probes launch, the
+#: least number of blocks each must run on, and ragged shapes
+CONTRACT_SHAPES = {
+    "dot_3d_2d": ((1, 1792, 256, 128), 132),
+    "einsum_brl_rlf": ((1, 32, 128, 14336), 64),
+    "batched_dot": ((56, 32, 128, 256), 132),
+    "outer_wgrad": ((1, 14336, 128, 32), 132),
+    "wgrad_2d": ((1, 128, 256, 1792), 128),
+    "outer_wgrad_chunked": ((7, 2048, 128, 32), 132),
+    "dgrad_rhs_T_2d": ((1, 32, 128, 128), 1),
+    "dgrad_rhs_T_big": ((1, 1792, 1152, 256), 132),
+    "dgrad_rhs_T_batched": ((28, 32, 64, 128), 132),
+    "ad_dot_rl": ((1, 32, 128, 3584), 128),
+    "ad_dot_rl_dx": ((28, 32, 128, 128), 128),
+    "ad_dot_rl_dw": ((28, 128, 128, 32), 128),
+    "ad_wgrad2d": ((1, 128, 256, 1920), 128),
+    "ad_wgrad2d_da": ((1, 1920, 128, 256), 132),
+    "ad_chain_dot": ((1, 1920, 256, 128), 132),
+    "ragged": ((1, 33, 65, 1000), 64),
+    "ragged_batched": ((3, 33, 65, 1000), 128),
+    "short_k": ((2, 70, 10, 7), 1),
+}
+
+
+@pytest.mark.parametrize("name", list(CONTRACT_SHAPES))
+def test_plan_splits_covers_k_once_in_order(name):
+    (batch, m, n, k), min_blocks = CONTRACT_SHAPES[name]
+    splits, chunk = plan_splits(batch, m, n, k)
+    assert plan_splits(batch, m, n, k) == (splits, chunk)
+    bounds = [(s * chunk, min(k, (s + 1) * chunk)) for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)  # none empty
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if splits > 1:
+        assert chunk % TILE_K == 0
+    tiles = batch * -(-m // TILE) * -(-n // TILE)
+    assert tiles * splits >= min_blocks
+    assert batch * splits <= 65535  # the grid's z limit
+
+
 # ---------------------------------------------------------------- CUDA
 
 @pytest.mark.cuda
@@ -170,3 +223,66 @@ def test_philox_kernel_is_bitwise_the_plain_generator(shape, step, stream):
     want = philox_bits_plain(seed, shape, step, stream, "cuda")
     assert torch.equal(a, want) and torch.equal(b, want)
     assert bool((eq == 1.0).all())
+
+
+def contract_operands(gen, name, dtype):
+    """(a, b) of one CONTRACT_SHAPES case as the probes lay them out: the
+    transposed, permuted, two-axis-k and broadcast views they pass."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if name == "einsum_brl_rlf":
+        return randn(32, 56, 256)[None], randn(56, 256, 128)[None]
+    if name in ("outer_wgrad", "outer_wgrad_chunked"):
+        a = randn(32, 56, 256).permute(1, 2, 0).reshape(1, 14336, 32)
+        g = randn(32, 128)[None]
+        if name == "outer_wgrad":
+            return a, g
+        return a.view(7, 2048, 32), g.expand(7, 32, 128)
+    if name in ("wgrad_2d", "ad_wgrad2d"):
+        r = 1792 if name == "wgrad_2d" else 1920
+        return randn(r, 128).T[None], randn(r, 256)[None]
+    if name.startswith("dgrad_rhs_T") or name == "ad_wgrad2d_da":
+        (batch, m, n, k), _ = CONTRACT_SHAPES[name]
+        return randn(batch, m, k), randn(batch, n, k).transpose(1, 2)
+    if name == "ad_dot_rl":
+        return randn(28, 32, 128).permute(1, 0, 2)[None], randn(28, 128,
+                                                                 128)[None]
+    if name == "ad_dot_rl_dx":
+        return (randn(32, 128)[None].expand(28, 32, 128),
+                randn(28, 128, 128).transpose(1, 2))
+    if name == "ad_dot_rl_dw":
+        return (randn(28, 32, 128).transpose(1, 2),
+                randn(32, 128)[None].expand(28, 32, 128))
+    (batch, m, n, k), _ = CONTRACT_SHAPES[name]
+    if name == "ragged_batched":  # b's batch stride 0
+        return randn(batch, m, k), randn(k, n)[None].expand(batch, k, n)
+    return randn(batch, m, k), randn(batch, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(CONTRACT_SHAPES))
+def test_contract_kernel_matches_plain(name, dtype):
+    """Every K5/K6 contraction shape and layout, ragged shapes, a batch
+    stride of 0, split (S > 1) and unsplit: within the probes' tolerance of
+    contract_plain (bf16 operands: their products are exact in f32, so the
+    f32 tolerance), and two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(8)
+    a, b = contract_operands(gen, name, dtype)
+    shape = (a.shape[0], a.shape[1], b.shape[-1], b.shape[-2] if a.dim() == 3
+             else a.shape[2] * a.shape[3])
+    assert shape == CONTRACT_SHAPES[name][0]
+    before = contract.launches
+    got, again = contract(a, b), contract(a, b)
+    want = contract_plain(a, b)
+    torch.cuda.synchronize()
+    assert contract.launches == before + 2
+    assert contract.plans[shape] == plan_splits(*shape)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, again)
+    rtol, atol = port.F32_TOL
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
