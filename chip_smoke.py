@@ -13,7 +13,9 @@ paths and fails loudly on anything wrong. Phases, in order:
    each, all at once (timed; registers, shared memory and spills); requires
    HMMA/HGMMA instructions in the SASS of every tensor-core kernel
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
-   the bf16 forward, the conv gradients and fc1's forward and backward).
+   the bf16 forward, the conv gradients and fc1's forward and backward, and
+   the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
+   ``conv2_wgrad_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
@@ -45,34 +47,44 @@ paths and fails loudly on anything wrong. Phases, in order:
    ``client_sgd.cu`` against its plain version on one step's real
    activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
    and backward; CE; SGD at [100, 421,642]), in f32 with TF32 off (max
-   |kernel - plain| <= 1e-5 * max|plain|) and in bf16 (<= 1e-2 * max|plain|,
-   one rounding apart; the forward convs, fc1's forward and backward and
-   the conv gradients on the tensor-core kernels; each pooled conv's argmax equal
-   to the plain version's wherever its window gap exceeds that tolerance,
+   |kernel - plain| <= 1e-5 * max|plain|; conv2's weight gradient, on
+   ``conv2_wgrad_tf32``, is held at that tolerance to the exact (f64)
+   gradient instead, its error there to at most 4x the f32 plain
+   version's, and its distance from the plain version printed) and in
+   bf16 (<= 1e-2 * max|plain|, one rounding apart; the forward convs, fc1's
+   forward and backward and the conv gradients on the tensor-core kernels;
+   each pooled conv's argmax equal to the plain version's wherever its window gap exceeds that tolerance,
    and agreeing on > 0.99 of all outputs),
    timed in turns with CUDA events beside the one PyTorch call that
-   computes the same product (cuDNN, ``baddbmm``; three timings of it, the
-   median kept, the spread printed): conv2's forward and gradient kernels
-   in both dtypes (CUDA-core in f32, tensor-core in bf16), the stem's
-   forward and fc1's and fc2's forward in the bf16 path's kernels, the rest
-   in bf16, the stem's weight gradient with its library call and bound;
+   computes the same product (cuDNN, ``baddbmm``, TF32 off; three timings
+   of it, the median kept, the spread printed): conv2's forward and
+   gradient kernels in both dtypes, the stem's weight gradient in f32
+   (``conv_wgrad``, in the row ``conv_wgrad_stem``), the stem's forward
+   and fc1's and fc2's forward in the bf16 path's kernels, the rest in bf16, the stem's bf16 weight gradient
+   with its library call and bound; f32 bounds count operations at the
+   3xTF32 rate and print the f32 CUDA-core figure beside them;
    fc1's backward beside the two ``torch.bmm`` and the sum that compute
    the same outputs (a reference, not a single library call);
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
-   ``mirror_local_train`` within 1e-4 at f32, every conv and dense launch
-   on the CUDA-core kernels); (c) ``run_bench()`` at full width in bf16:
+   ``mirror_local_train`` within 1e-4 at f32; per step 1 ``conv_wgrad``,
+   the stem's, and 1 ``conv2_wgrad_tf32``, every other conv and dense
+   launch on the CUDA-core kernels); (c) ``run_bench()`` at full width in
+   bf16:
    finite parameters, 12 launches per step x 38 steps, by kernel 38 each
    on ``conv2_fwd_tc``, ``stem_fwd_tc``, ``dense_fwd_tc``,
    ``dense_bwd_tc`` and fc2's ``dense_fwd`` and ``dense_bwd``, 76 + 38 on
    the conv gradients' tensor-core kernels, two calls
    bitwise equal, FedAvg test accuracy > 0.5; prints the kernel path's,
-   the mirror's and the engine trainer's ms per call; (d) K3, the raw stem
-   conv, at [100, 32, 28*28*8] x [100, 4, 4, 8, 128]: its path (one
-   ``client_stem_conv`` call in bf16, counted: one ``stem_raw_tc``
-   launch), held to ``client_stem_conv_plain`` in f32 (``conv_fwd``) and
-   bf16 (``stem_raw_tc``) at the tolerances of (a), bf16 bitwise on
-   repeat and, on small integers, bitwise the plain version; both dtypes'
-   times beside grouped ``F.conv2d`` (three timings, the median kept).
+   the mirror's and the engine trainer's ms per call; then one f32
+   ``fused_local_train`` call on the same clients
+   (``fused_kernel_bench.time_call``), timed with its launches by kernel;
+   (d) K3, the raw stem conv, at [100, 32, 28*28*8] x [100, 4, 4, 8, 128],
+   in each dtype: its path (one ``client_stem_conv`` call, counted: one
+   ``stem_raw_tc`` launch in bf16, one ``stem_raw_tf32`` in f32), held to
+   ``client_stem_conv_plain`` at the tolerances of (a) (in f32 also its
+   error against f64 to at most 4x the plain's), bitwise on repeat and, on
+   small integers, bitwise the plain version; times beside grouped
+   ``F.conv2d`` (three timings, the median kept).
 8. The Mosaic probe set (K5): ``benchmarks/mosaic_probe.run_probes()``,
    every probe's kernel path against its plain version (layout, generator
    and carried sums bitwise, the rest within the JAX probe's tolerance);
@@ -80,11 +92,13 @@ paths and fails loudly on anything wrong. Phases, in order:
    probe's kernel and plain times in turns (CUDA events), each contraction
    probe's ``torch.matmul`` / ``torch.einsum`` of its own function (median
    of three), and per kernel the one PyTorch call that computes the same
-   function, where there is one.
+   function, where there is one; then each such kernel against that call
+   in 5 rounds of turns: the factor's median and range.
 9. The autodiff probe set (K6): ``benchmarks/ad_in_kernel_probe.
    run_probes()``, every probe's gradient through the hand-written backward
    kernels against ``torch.autograd`` of the plain body, at the JAX probe's
-   tolerance; times of both, and of the backward-only kernels.
+   tolerance; times of both, and of the backward-only kernels (also in 5
+   rounds of turns against their plain versions).
 10. K4's dropout: the dropout kernel against its plain version (bitwise,
    [100, 32, 3136] and [100, 32, 128], f32 and bf16);
    ``run_check(use_dropout=True)`` (C=4, f32, against the mirror fed the
@@ -140,8 +154,11 @@ ROBUST_RUNS = [
 MIN_ACCURACY = {"R1": 0.5, "R2": 0.5}
 #: H100 SXM data sheet, dense, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-TF32_FLOPS = 495e12  # the tensor cores' TF32 rate (the Gram's 3xTF32)
+TF32_FLOPS = 495e12  # the tensor cores' TF32 rate
+F32_CORE_FLOPS = 67e12  # f32 outside the tensor cores
+#: an f32 function's operations count at the 3xTF32 rate (its kernels run
+#: each f32 product as three TF32 ones on the tensor cores, or could)
+PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12}
 #: each local-training kernel's source, by its wrapper's name prefix
 FUSED_SOURCES = {prefix: f"multimodal_fl_security_tpu_torch/csrc/{src}.cu"
                  for prefix, src in (("conv", "client_conv"),
@@ -155,6 +172,9 @@ K4_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:307"
 #: max|kernel - plain| allowed over max|plain|: f32 with TF32 off (the same
 #: products summed in another order) and bf16 (outputs one rounding apart)
 FUSED_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: a 3xTF32 kernel's error against f64 sums, at most this many times the f32
+#: plain version's
+F64_FACTOR = 4
 FUSED_CHECK_ATOL = 1e-4
 #: a pooled conv kernel's argmax must agree with its plain version's on more
 #: than this share of outputs (near ties may route either way)
@@ -204,7 +224,12 @@ TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
               "stem_fwd_tc_kernel", "conv2_wgrad_tc_kernel",
               "stem_wgrad_tc_kernel",
               "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
-              "dense_bwd_tc_kernel")
+              "dense_bwd_tc_kernel", "stem_raw_tf32_kernel",
+              "conv2_wgrad_tf32_kernel")
+#: the instruction phase 2 requires in a 3xTF32 kernel's SASS: HGMMA for
+#: wgmma, HMMA for mma.sync
+TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
+            "conv2_wgrad_tf32_kernel": "HMMA"}
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
 DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
 
@@ -278,9 +303,10 @@ def phase_build() -> None:
 
 def check_tensor_cores(libs) -> None:
     """``cuobjdump -sass`` of the Gram, conv and dense libraries: every
-    tensor-core kernel (``*_tc_kernel``, each instantiation) holds HMMA
-    (mma.sync) or HGMMA (wgmma) instructions, and each of TC_KERNELS has
-    one."""
+    tensor-core kernel (``*_tc_kernel`` and ``*_tf32_kernel``, each
+    instantiation) holds HMMA (mma.sync) or HGMMA (wgmma) instructions,
+    each of TC_KERNELS has one, and each 3xTF32 kernel the one of
+    TF32_OPS."""
     from multimodal_fl_security_tpu_torch.ops._build import find_nvcc
 
     counts, name = {}, None
@@ -291,26 +317,40 @@ def check_tensor_cores(libs) -> None:
         for line in sass.splitlines():
             if "Function :" in line:
                 name = line.split("Function :")[1].strip()
-                counts[name] = 0
-            elif name and ("HMMA" in line or "HGMMA" in line):
-                counts[name] += 1
-    tc = {n: k for n, k in counts.items() if "_tc_kernel" in n}
+                counts[name] = {"HMMA": 0, "HGMMA": 0}
+            elif name:
+                for op in ("HMMA", "HGMMA"):
+                    counts[name][op] += op in line
+    tc = {n: k for n, k in counts.items()
+          if "_tc_kernel" in n or "_tf32_kernel" in n}
     for n, k in tc.items():
         short = n.split("_cu_")[-1]
-        print(f"[build] SASS {short}: {k} HMMA/HGMMA")
+        print(f"[build] SASS {short}: {k['HMMA'] + k['HGMMA']} HMMA/HGMMA "
+              f"({k['HMMA']} HMMA, {k['HGMMA']} HGMMA)")
     missing = [k for k in TC_KERNELS if not any(k in n for n in tc)]
-    if missing or not all(tc.values()):
+    wrong = [n for n, k in tc.items() for kernel, op in TF32_OPS.items()
+             if kernel in n and not k[op]]
+    if missing or wrong or not all(k["HMMA"] + k["HGMMA"]
+                                   for k in tc.values()):
         raise AssertionError(f"tensor-core kernels without HMMA: {tc}; "
-                             f"not found: {missing}")
+                             f"not found: {missing}; without their "
+                             f"instruction: {wrong}")
 
 
 def bound(nbytes_moved: float, flops: float,
           dtype: torch.dtype = torch.float32) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the operations over the peak rate of ``dtype`` (H100 SXM data sheet)."""
+    the operations over the peak rate of ``dtype`` (H100 SXM data sheet;
+    for f32 the 3xTF32 rate, :data:`PEAK_FLOPS`; :func:`f32_core_ms` gives
+    the f32 CUDA-core figure beside it)."""
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_core_ms(flops: float) -> float:
+    """``flops`` at the f32 CUDA-core rate, in ms."""
+    return flops / F32_CORE_FLOPS * 1e3
 
 
 def nbytes(*tensors: torch.Tensor) -> int:
@@ -401,10 +441,10 @@ def gram_bound(c: int, d: int) -> tuple:
     moved = 4 * (c * d + c * c)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = 3 * c * (c + 1) * d / TF32_FLOPS * 1e3
-    f32_ms, f32_by = bound(moved, c * (c + 1) * d)
+    f32_ms = max(t_bytes, f32_core_ms(c * (c + 1) * d))
     print(f"[kernel] gram [{c}, {d}] bound: {max(t_bytes, t_ops):.4f} ms "
           f"(bytes {t_bytes:.4f}, 3xTF32 operations {t_ops:.4f}); at the "
-          f"f32 CUDA-core rate {f32_ms:.4f} ms ({f32_by})")
+          f"f32 CUDA-core rate {f32_ms:.4f} ms")
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -751,18 +791,34 @@ def phase_robust_rounds() -> dict:
 
 
 def held(what: str, got: torch.Tensor, want: torch.Tensor,
-         dtype: torch.dtype) -> float:
-    """max|got - want|; raises past FUSED_REL_TOL[dtype] * max|want|."""
+         dtype: torch.dtype, against: str = "plain") -> float:
+    """max|got - want|; raises past FUSED_REL_TOL[dtype] * max|want|.
+    ``against`` names the reference: the plain version, or f64 sums."""
     got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     tol = FUSED_REL_TOL[dtype] * float(want.abs().max())
     name = "f32" if dtype == torch.float32 else "bf16"
-    print(f"[fused] {what} {name}: max|kernel-plain| {err:.6g} (tolerance "
-          f"{tol:.6g})")
+    print(f"[fused] {what} {name}: max|kernel-{against}| {err:.6g} "
+          f"(tolerance {tol:.6g})")
     if not err <= tol:
         raise AssertionError(f"{what} {name}: the kernel disagrees with its "
-                             f"plain version: {err} > {tol}")
+                             f"{against} reference: {err} > {tol}")
     return err
+
+
+def wgrad_f64(xin: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
+              arg: torch.Tensor, w: torch.Tensor) -> tuple:
+    """The exact weight gradient of a 3x3 SAME stride-1 conv, (dW, db) of
+    ``conv_wgrad``'s operands summed in f64 (``conv2d_weight`` and dz's
+    sum)."""
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+
+    c = xin.shape[0]
+    dz = cc._dense_dz(dp, h, arg, *xin.shape[-2:]).double()
+    gw = torch.nn.grad.conv2d_weight(
+        cc._grouped(xin.float()).double(), (c * w.shape[1], *w.shape[2:]),
+        cc._grouped(dz), padding=1, groups=c)
+    return gw.view(w.shape), dz.sum(dim=(1, 3, 4))
 
 
 def held_argmax(what: str, got: torch.Tensor, want: torch.Tensor,
@@ -896,13 +952,33 @@ def phase_fused_kernels() -> dict:
             errs["dense_bwd", dt, name] = held(f"fc1 bwd {name}", got, ref,
                                                dt)
         dh3 = k1[2].view(h3.shape)
-        for name, got, ref in zip(("dW", "db"), wgrad(
-                cc.conv_wgrad, h1, dh3, h3, a3, v["conv2.weight"],
-                v["conv2.bias"], dt), wgrad(
-                cc.conv_wgrad_plain, h1, dh3, h3, a3, v["conv2.weight"],
-                v["conv2.bias"], dt)):
-            errs["conv_wgrad", dt, name] = held(f"conv2 wgrad {name}", got,
-                                                ref, dt)
+        got2, plain2 = (wgrad(fn, h1, dh3, h3, a3, v["conv2.weight"],
+                              v["conv2.bias"], dt)
+                        for fn in (cc.conv_wgrad, cc.conv_wgrad_plain))
+        if dt == f32:
+            # conv2_wgrad_tf32's 3xTF32 sums keep f32's accuracy; the plain
+            # version's f32 sums over 32 x 196 positions need not, so the
+            # kernel is held to the exact (f64) gradient, its error there to
+            # at most F64_FACTOR times the plain version's, and its
+            # distance from the plain version is printed.
+            exact = wgrad_f64(h1, dh3, h3, a3, v["conv2.weight"])
+            for name, got, ref, pl in zip(("dW", "db"), got2, exact, plain2):
+                errs["conv_wgrad", dt, name] = held(
+                    f"conv2 wgrad {name}", got, ref, dt, against="f64")
+                e_p = float((pl.double() - ref).abs().max())
+                d_p = float((got - pl).abs().max())
+                errs["conv_wgrad_vs_plain", dt, name] = d_p
+                print(f"[fused] conv2 wgrad {name} f32: max|kernel-plain| "
+                      f"{d_p:.6g}; vs f64: plain {e_p:.6g}")
+                if not errs["conv_wgrad", dt, name] <= F64_FACTOR * e_p:
+                    raise AssertionError(
+                        f"conv2 wgrad {name} f32: error against f64 "
+                        f"{errs['conv_wgrad', dt, name]} > {F64_FACTOR} x "
+                        f"the plain version's {e_p}")
+        else:
+            for name, got, ref in zip(("dW", "db"), got2, plain2):
+                errs["conv_wgrad", dt, name] = held(f"conv2 wgrad {name}",
+                                                    got, ref, dt)
         dh1 = cc.conv_dgrad(dh3, h3, a3, v["conv2.weight"], (14, 14),
                             dtype=dt, channels_last=True)
         errs["conv_dgrad", dt] = held(
@@ -913,7 +989,8 @@ def phase_fused_kernels() -> dict:
                 v["conv1.bias"], dt), wgrad(
                 cc.conv_wgrad_plain, x, dh1, h1, a1, v["conv1.weight"],
                 v["conv1.bias"], dt)):
-            held(f"stem wgrad {name}", got, ref, dt)
+            errs["stem_wgrad", dt, name] = held(f"stem wgrad {name}", got,
+                                                ref, dt)
         timed[dt] = dict(h1=h1, a1=a1, h3=h3, a3=a3, f3=f3, h4=h4,
                          logits=logits, dl=dl, dz4=dz4, dh3=dh3, dh1=dh1)
 
@@ -932,7 +1009,7 @@ def phase_fused_kernels() -> dict:
     errs["sgd_update", f32] = held("sgd params [100, 421,642]", pk, pp, f32)
 
     # Times, at each kernel's dtype (bf16 for the path's kernels, f32 for
-    # the CUDA-core conv kernels of the checking mode), with bounds.
+    # the f32 path's conv kernels), with bounds.
     t, t32 = timed[bf16], timed[f32]
     w2, b2 = v["conv2.weight"], v["conv2.bias"]
     w1, b1 = v["fc1.weight"], v["fc1.bias"]
@@ -947,9 +1024,10 @@ def phase_fused_kernels() -> dict:
     gbc1 = torch.empty_like(v["conv1.bias"])
     pk2, mk2 = p.clone(), mom.clone()
 
-    def conv_grads(dt, suffix):
-        """conv2's weight and input gradients at dtype dt: bf16 runs the
-        tensor-core kernels (suffix "_tc"), f32 the CUDA-core ones."""
+    def conv_grads(dt, wgrad_name, dgrad_name):
+        """conv2's weight and input gradients at dtype dt, by the names of
+        the kernels that run them: bf16 the tensor-core ones, f32
+        conv2_wgrad_tf32 and the CUDA-core conv_dgrad."""
         a = timed[dt]
         xgd = cc._grouped(a["h1"]).contiguous()
         wgd = w2.to(dt).reshape(-1, *w2.shape[2:])
@@ -957,7 +1035,7 @@ def phase_fused_kernels() -> dict:
                           ).to(dt).contiguous()
         live3 = int(((a["h3"] > 0) & (a["dh3"] != 0)).sum())
         return {
-            "conv_wgrad" + suffix: (
+            wgrad_name: (
                 lambda: cc.conv_wgrad(a["h1"], a["dh3"], a["h3"], a["a3"],
                                       gw2, gb2, dtype=dt),
                 lambda: cc.conv_wgrad_plain(a["h1"], a["dh3"], a["h3"],
@@ -966,7 +1044,7 @@ def phase_fused_kernels() -> dict:
                                                     padding=1, groups=c),
                 nbytes(a["h1"], a["dh3"], a["h3"], a["a3"], w2, b2),
                 2 * live3 * (32 * 9 + 1), dt),
-            "conv_dgrad" + suffix: (
+            dgrad_name: (
                 lambda: cc.conv_dgrad(a["dh3"], a["h3"], a["a3"], w2,
                                       (14, 14), dtype=dt,
                                       channels_last=True),
@@ -980,6 +1058,10 @@ def phase_fused_kernels() -> dict:
 
     w1c, b1c = v["conv1.weight"], v["conv1.bias"]
     xsg = cc._grouped(x).to(bf16).contiguous()
+    xsg32 = cc._grouped(x).contiguous()
+    dz1g32 = cc._grouped(cc._dense_dz(t32["dh1"], t32["h1"], t32["a1"], 28,
+                                      28)).contiguous()
+    live1_32 = int(((t32["h1"] > 0) & (t32["dh1"] != 0)).sum())
     w1g = w1c.to(bf16).reshape(-1, *w1c.shape[2:])
     xg32 = cc._grouped(t32["h1"]).contiguous()
     wf2, bf2 = v["fc2.weight"], v["fc2.bias"]
@@ -1005,8 +1087,20 @@ def phase_fused_kernels() -> dict:
                              b2.reshape(-1), padding=1, groups=c),
             nbytes(t32["h1"], w2, b2, t32["h3"], t32["a3"]), conv2_flops,
             f32),
-        **conv_grads(f32, ""),
-        **conv_grads(bf16, "_tc"),
+        **conv_grads(f32, "conv2_wgrad_tf32", "conv_dgrad"),
+        **conv_grads(bf16, "conv_wgrad_tc", "conv_dgrad_tc"),
+        # The stem's weight gradient in f32: the CUDA-core kernel
+        # (conv_wgrad; until conv2's moved to conv2_wgrad_tf32, this row's
+        # name was conv2's).
+        "conv_wgrad_stem": (
+            lambda: cc.conv_wgrad(x, t32["dh1"], t32["h1"], t32["a1"], gwc1,
+                                  gbc1),
+            lambda: cc.conv_wgrad_plain(x, t32["dh1"], t32["h1"], t32["a1"],
+                                        gwc1, gbc1),
+            lambda: torch.nn.grad.conv2d_weight(
+                xsg32, (c * 32, 1, 3, 3), dz1g32, padding=1, groups=c),
+            nbytes(x, t32["dh1"], t32["h1"], t32["a1"], w1c, b1c),
+            2 * live1_32 * (9 + 1), f32),
         "dense_fwd_tc": (
             lambda: cd.dense_fwd(t["f3"], w1, b1, relu=True, wdtype=bf16,
                                  out_dtype=bf16),
@@ -1062,7 +1156,8 @@ def phase_fused_kernels() -> dict:
                "conv2_fwd_tc": ("conv_fwd", bf16),
                "stem_fwd_tc": ("stem", bf16),
                "dense_fwd_tc": ("dense_fwd", bf16),
-               "conv_wgrad": ("conv_wgrad", f32, "dW"),
+               "conv2_wgrad_tf32": ("conv_wgrad", f32, "dW"),
+               "conv_wgrad_stem": ("stem_wgrad", f32, "dW"),
                "conv_dgrad": ("conv_dgrad", f32),
                "conv_wgrad_tc": ("conv_wgrad", bf16, "dW"),
                "conv_dgrad_tc": ("conv_dgrad", bf16),
@@ -1083,9 +1178,13 @@ def phase_fused_kernels() -> dict:
         bound_ms, bound_by = bound(moved, flops, dt)
         lib_text = (f"{library_ms:.4f} ms (runs {lib_runs[0]:.4f}-"
                     f"{lib_runs[2]:.4f})" if lib else "none")
+        core_text = ""
+        if dt == f32:
+            core_ms = max(moved / HBM_BYTES_PER_S * 1e3, f32_core_ms(flops))
+            core_text = f"; at the f32 CUDA-core rate {core_ms:.4f} ms"
         print(f"[fused] {name} {'f32' if dt == f32 else 'bf16'}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_text}, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}){core_text}")
         rows[name] = {
             "name": name, "route": "cuda",
             "source": FUSED_SOURCES[name.split("_")[0]],
@@ -1095,6 +1194,9 @@ def phase_fused_kernels() -> dict:
             "library_ms": library_ms}
         if err_key[name][0] in ("stem", "conv_fwd"):
             rows[name]["argmax_agreement"] = agree[err_key[name][:2]]
+        if name == "conv2_wgrad_tf32":  # max_abs_err: against f64 sums
+            rows[name]["max_abs_err_vs_f32_plain"] = errs[
+                "conv_wgrad_vs_plain", f32, "dW"]
     # fc1's backward has no single library call: as a reference, the two
     # torch.bmm (dW = dz^T x, dx = dz W in bf16, W cast from the f32
     # buffer) and the sum (db) that compute the same outputs.
@@ -1129,7 +1231,8 @@ def phase_fused_kernels() -> dict:
         print(f"[fused] {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})")
-    print(f"[fused] live outputs of the weight gradients: stem {live1}")
+    print(f"[fused] live outputs of the weight gradients: stem {live1} "
+          f"(bf16), {live1_32} (f32)")
     del engine, timed, t, t32, cases, extra
     torch.cuda.empty_cache()
     return rows
@@ -1177,16 +1280,55 @@ def phase_fused_path() -> dict:
         raise AssertionError("fused local training: " + "; ".join(failures))
     check_kernels("run_bench (bf16)", bench, tc_steps=38)
     # The kernels' rows: the tensor-core ones and fc2's dense_fwd from the
-    # bf16 path, the CUDA-core conv kernels from the f32 checking path.
-    cuda_core = ("conv_fwd", "conv_wgrad", "conv_dgrad")
+    # bf16 path, the f32 path's conv kernels from run_check.
+    cuda_core = ("conv_fwd", "conv2_wgrad_tf32", "conv_dgrad")
     return {**bench["launches"], **bench["kernel_launches"],
-            **{k: check["kernel_launches"][k] for k in cuda_core}}
+            **{k: check["kernel_launches"][k] for k in cuda_core},
+            "conv_wgrad_stem": check["kernel_launches"]["conv_wgrad"]}
 
 
-def phase_k3() -> dict:
+def phase_fused_f32_call() -> dict:
+    """7c, continued: one f32 ``fused_local_train`` call on the north
+    star's clients (``fused_kernel_bench.time_call``): ms per call and
+    launches by kernel; finite parameters, every conv and dense launch on
+    the f32 path's kernels."""
+    from multimodal_fl_security_tpu_torch.benchmarks.fused_kernel_bench import (
+        time_call,
+    )
+
+    res = time_call(torch.float32)
+    runs = ", ".join(f"{r:.3f}" for r in res["ms_runs"])
+    print(f"[fused] f32 call ({res['clients']} clients, 38 steps): "
+          f"{res['ms_per_call']:.3f} ms per call (runs {runs}); launches by "
+          f"kernel {res['kernel_launches']}")
+    steps = 38
+    want = {"conv_fwd": 2 * steps, "conv_wgrad": steps,
+            "conv2_wgrad_tf32": steps, "conv_dgrad": steps,
+            "dense_fwd": 2 * steps, "dense_bwd": 2 * steps}
+    if not res["finite"] or res["kernel_launches"] != want:
+        raise AssertionError(f"f32 call: finite {res['finite']}, launches "
+                             f"{res['kernel_launches']}, expected {want}")
+    return res
+
+
+def stem_f64(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
+    """K3 in f64 on the card: the accuracy checks' reference."""
+    import torch.nn.functional as F
+
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+
+    c, b = x.shape[:2]
+    xx = x.double().view(c, b, 28, 28, 8).permute(0, 1, 4, 2, 3)
+    ww = w4.double().permute(0, 4, 3, 1, 2).reshape(-1, 8, 4, 4)
+    return cc._ungrouped(F.conv2d(cc._grouped(xx), ww, stride=2, padding=1,
+                                  groups=c), c).permute(0, 1, 3, 4, 2)
+
+
+def phase_k3() -> list:
     """7d: K3, the raw stem conv, at [100, 32, 28*28*8] x [100, 4, 4, 8,
-    128]; returns stem_raw_tc's row, its launches those of K3's path (one
-    ``client_stem_conv`` call in bf16, every count set to 0 just before)."""
+    128], in bf16 (``stem_raw_tc``) and f32 (``stem_raw_tf32``); returns
+    both rows, each one's launches those of its path (one
+    ``client_stem_conv`` call, every count set to 0 just before)."""
     import torch.nn.functional as F
 
     from multimodal_fl_security_tpu_torch.ops import client_conv as cc
@@ -1196,44 +1338,51 @@ def phase_k3() -> dict:
     )
 
     f32, bf16 = torch.float32, torch.bfloat16
+    kernels = {bf16: "stem_raw_tc", f32: "stem_raw_tf32"}
     c, b = 100, 32
     gen = torch.Generator("cuda").manual_seed(9)
     x = torch.randn((c, b, 28 * 28 * 8), generator=gen, device="cuda")
     w4 = 0.1 * torch.randn((c, 4, 4, 8, 128), generator=gen, device="cuda")
-    xb, wb = x.to(bf16), w4.to(bf16)
-    reset_kernel_launches()
-    y = cc.client_stem_conv(xb, wb)
-    torch.cuda.synchronize()
-    launches = kernel_launches()
-    print(f"[K3] path: one client_stem_conv call in bf16, launches by kernel "
-          f"{launches}")
-    if launches != {**dict.fromkeys(launches, 0), "stem_raw_tc": 1}:
-        raise AssertionError(f"K3 in bf16 did not run stem_raw_tc once: "
-                             f"{launches}")
-    if y.shape != (c, b, 14, 14, 128) or y.dtype != bf16 or \
-            not bool(torch.isfinite(y).all()):
-        raise AssertionError(f"K3's output: {tuple(y.shape)} {y.dtype}, or "
-                             f"not finite")
-    errs = {dt: held("K3 raw stem [100, 32, 6272]",
-                     cc.client_stem_conv(x.to(dt), w4.to(dt)),
-                     cc.client_stem_conv_plain(x.to(dt), w4.to(dt)), dt)
-            for dt in (f32, bf16)}
-    if not torch.equal(y, cc.client_stem_conv(xb, wb)):
-        raise AssertionError("K3 in bf16: two calls differ")
-    xi = torch.randint(-3, 4, x.shape, generator=gen, device="cuda").to(bf16)
-    wi = torch.randint(-2, 3, w4.shape, generator=gen, device="cuda").to(bf16)
-    got = cc.client_stem_conv(xi, wi)
-    with torch.backends.cudnn.flags(enabled=False):  # exact on integers
-        want = cc.client_stem_conv_plain(xi, wi)
-    if not torch.equal(got, want):
-        raise AssertionError("K3 in bf16 on integer operands differs from "
-                             "its plain version")
-    print(f"[K3] bf16: two calls bitwise equal; on integer operands (max "
-          f"|sum| {float(want.float().abs().max()):.0f}) bitwise the plain "
-          f"version")
-    row = None
-    for dt in (f32, bf16):
+    xi = torch.randint(-3, 4, x.shape, generator=gen, device="cuda").float()
+    wi = torch.randint(-2, 3, w4.shape, generator=gen, device="cuda").float()
+    ref = stem_f64(x, w4)
+    rows = []
+    for dt in (bf16, f32):
+        name, kernel = ("bf16", "f32")[dt == f32], kernels[dt]
         xd, wd = x.to(dt), w4.to(dt)
+        reset_kernel_launches()
+        y = cc.client_stem_conv(xd, wd)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        print(f"[K3] path: one client_stem_conv call in {name}, launches by "
+              f"kernel {launches}")
+        if launches != {**dict.fromkeys(launches, 0), kernel: 1}:
+            raise AssertionError(f"K3 in {name} did not run {kernel} once: "
+                                 f"{launches}")
+        if y.shape != (c, b, 14, 14, 128) or y.dtype != dt or \
+                not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"K3's output: {tuple(y.shape)} {y.dtype}, "
+                                 f"or not finite")
+        want = cc.client_stem_conv_plain(xd, wd)
+        err = held(f"K3 raw stem [100, 32, 6272] ({kernel})", y, want, dt)
+        if dt == f32:
+            e_k, e_p = (float((v.double() - ref).abs().max())
+                        for v in (y, want))
+            print(f"[K3] f32 vs f64: kernel {e_k:.6g}, plain {e_p:.6g}")
+            if not e_k <= F64_FACTOR * e_p:
+                raise AssertionError(f"K3 in f32: error against f64 {e_k} "
+                                     f"over 4x the plain version's {e_p}")
+        if not torch.equal(y, cc.client_stem_conv(xd, wd)):
+            raise AssertionError(f"K3 in {name}: two calls differ")
+        got_i = cc.client_stem_conv(xi.to(dt), wi.to(dt))
+        with torch.backends.cudnn.flags(enabled=False):  # exact on integers
+            want_i = cc.client_stem_conv_plain(xi.to(dt), wi.to(dt))
+        if not torch.equal(got_i, want_i):
+            raise AssertionError(f"K3 in {name} on integer operands differs "
+                                 f"from its plain version")
+        print(f"[K3] {name}: two calls bitwise equal; on integer operands "
+              f"(max |sum| {float(want_i.float().abs().max()):.0f}) bitwise "
+              f"the plain version")
         xg = cc._grouped(xd.view(c, b, 28, 28, 8).permute(0, 1, 4, 2, 3)
                          ).contiguous()
         wg = wd.permute(0, 4, 3, 1, 2).reshape(-1, 8, 4, 4).contiguous()
@@ -1242,22 +1391,26 @@ def phase_k3() -> dict:
         lib_runs = sorted(time_ms(lambda _: F.conv2d(
             xg, wg, stride=2, padding=1, groups=c), None) for _ in range(3))
         moved = nbytes(xd, wd) + xd.element_size() * c * b * 196 * 128
-        bound_ms, bound_by = bound(moved, 2 * c * b * 196 * 128 * 128, dt)
-        kernel = "stem_raw_tc" if dt == bf16 else "conv_fwd"
-        print(f"[K3] {kernel} {'bf16' if dt == bf16 else 'f32'}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (grouped "
-              f"F.conv2d) {lib_runs[1]:.4f} ms (runs {lib_runs[0]:.4f}-"
-              f"{lib_runs[2]:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
-        if dt == bf16:
-            row = {"name": "stem_raw_tc", "route": "cuda",
-                   "source": K3_SOURCE, "replaces": K3_REPLACES,
-                   "launches": launches["stem_raw_tc"],
-                   "max_abs_err": errs[bf16], "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": lib_runs[1]}
-    del x, w4, xb, wb, y, xi, wi, got, want
+        flops = 2 * c * b * 196 * 128 * 128
+        bound_ms, bound_by = bound(moved, flops, dt)
+        core_text = ""
+        if dt == f32:
+            core_ms = max(moved / HBM_BYTES_PER_S * 1e3, f32_core_ms(flops))
+            core_text = f"; at the f32 CUDA-core rate {core_ms:.4f} ms"
+        print(f"[K3] {kernel} {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (grouped F.conv2d) "
+              f"{lib_runs[1]:.4f} ms (runs {lib_runs[0]:.4f}-"
+              f"{lib_runs[2]:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}){core_text}")
+        rows.append({"name": kernel, "route": "cuda", "source": K3_SOURCE,
+                     "replaces": K3_REPLACES, "launches": launches[kernel],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_runs[1]})
+        del xd, wd, y, want, got_i, want_i, xg, wg
+    del x, w4, xi, wi, ref
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 def check_kernels(what: str, result: dict, f32_steps: int = 0,
@@ -1265,11 +1418,11 @@ def check_kernels(what: str, result: dict, f32_steps: int = 0,
     """Every launch of the conv and dense wrappers went through the kernel
     of its dtype, per step: two forward convs, two weight gradients and one
     input gradient, and fc1's and fc2's forward and backward; in f32 all on
-    the CUDA-core kernels, in bf16 all on the tensor-core ones but fc2's
-    (f32 weights)."""
+    the CUDA-core kernels but conv2's weight gradient (conv2_wgrad_tf32), in
+    bf16 all on the tensor-core ones but fc2's (f32 weights)."""
     want = {"conv_fwd": 2 * f32_steps, "conv2_fwd_tc": tc_steps,
-            "stem_fwd_tc": tc_steps, "stem_raw_tc": 0,
-            "conv_wgrad": 2 * f32_steps,
+            "stem_fwd_tc": tc_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
+            "conv_wgrad": f32_steps, "conv2_wgrad_tf32": f32_steps,
             "conv_wgrad_tc": 2 * tc_steps, "conv_dgrad": f32_steps,
             "conv_dgrad_tc": tc_steps, "dense_fwd": 2 * f32_steps + tc_steps,
             "dense_fwd_tc": tc_steps, "dense_bwd": 2 * f32_steps + tc_steps,
@@ -1336,6 +1489,23 @@ def probe_row(name: str, ms: float, plain_ms: float, library_ms, moved: int,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def stable_factor(what: str, name: str, kern, other, other_name: str,
+                  rounds: int = 5) -> dict:
+    """``kern`` against ``other`` in ``rounds`` rounds of :func:`turns`:
+    prints the factor kern / other of each round's means, its median and
+    range, and both medians; returns them as row keys."""
+    runs = [turns(kern, other, 10) for _ in range(rounds)]
+    f = sorted(k / o for k, o in runs)
+    k_med = sorted(k for k, _ in runs)[rounds // 2]
+    o_med = sorted(o for _, o in runs)[rounds // 2]
+    print(f"[{what}] {name} over {rounds} rounds of turns: kernel "
+          f"{k_med:.4f} ms, {other_name} {o_med:.4f} ms (medians); factor "
+          f"median {f[rounds // 2]:.3f}, range {f[0]:.3f}-{f[-1]:.3f}")
+    return {f"factor_vs_{other_name}_median": f[rounds // 2],
+            f"factor_vs_{other_name}_range": [f[0], f[-1]],
+            "ms_median_5": k_med, f"{other_name}_ms_median_5": o_med}
 
 
 def phase_probes() -> tuple:
@@ -1411,6 +1581,16 @@ def phase_probes() -> tuple:
         library_ms = time_ms(lambda _: lib(), None) if lib else None
         rows[name] = probe_row(name, *times[probe], library_ms, moved, ops,
                                errs[probe])
+    # Host-bound kernels' factors over their library calls move 2-4x from
+    # run to run: each kernel against its library call in 5 rounds of
+    # turns, the factor's median and range.
+    by_name = {p.name: p for p in mp.PROBES}
+    for name, (lib, _, _) in cases.items():
+        if lib is not None:
+            probe = by_name[PROBE_KERNELS[name][2]]
+            args = inputs[probe.name]
+            rows[name].update(stable_factor(
+                "K5", name, lambda: probe.kernel(*args), lib, "library"))
     # The contraction at its longest k, beside its library call.
     rows["contract"]["ms_einsum_brl_rlf"] = times["einsum_brl_rlf"][0]
     rows["contract"]["library_ms_einsum_brl_rlf"] = \
@@ -1476,6 +1656,9 @@ def phase_ad_probes() -> tuple:
                                  f"(max err {err})")
         rows[name] = probe_row(name, *turns(kern, plain), None, moved, ops,
                                err)
+        # No library call computes these: the kernel against its plain
+        # version, in the same 5 rounds.
+        rows[name].update(stable_factor("K6", name, kern, plain, "plain"))
     return rows, run["launches"]
 
 
@@ -1564,7 +1747,8 @@ def main() -> None:
     robust = phase_robust_rounds()
     fused_rows = phase_fused_kernels()
     fused = phase_fused_path()
-    k3_row = phase_k3()
+    phase_fused_f32_call()
+    k3_rows = phase_k3()
     probe_rows, k5 = phase_probes()
     ad_rows, k6 = phase_ad_probes()
     drop_row, drop_launches = phase_dropout()
@@ -1579,10 +1763,11 @@ def main() -> None:
     print(f"[paths] gram launches: {north_star} (Krum north star) + "
           f"{robust['gram']} (R4); sorted_reduce launches: "
           f"{robust['sorted_reduce']} (R1-R4); fused local training (one "
-          f"call, 38 steps): {fused}; K3 (one call): "
-          f"{k3_row['launches']}; K5 probes: {k5}; K6 probes: {k6}; "
+          f"call, 38 steps): {fused}; K3 (one call each): "
+          f"{ {r['name']: r['launches'] for r in k3_rows} }; K5 probes: "
+          f"{k5}; K6 probes: {k6}; "
           f"dropout (one call, 38 steps): {drop_launches}")
-    rows = [gram_row, sort_row, *fused_rows.values(), k3_row,
+    rows = [gram_row, sort_row, *fused_rows.values(), *k3_rows,
             *probe_rows.values(), *ad_rows.values(), drop_row]
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:

@@ -14,7 +14,7 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
   path, the mirror, and the engine's ``make_local_train_fn`` (shuffled,
   with dropout: what the JAX bench compares against). It also counts the
   kernel path's launches per call by wrapper and by kernel (the conv and
-  fc1 kernels: CUDA-core for f32, tensor-core for bf16), checks that two calls
+  dense kernels, ``ops/_launch.py::KERNEL_LAUNCHES``), checks that two calls
   are bitwise equal, measures the drift from the mirror, and evaluates the
   FedAvg of the trained clients and of the engine trainer's on the bench's
   test set.
@@ -24,13 +24,19 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
   makes and times the call without dropout beside it.
   ``run_check(use_dropout=True)`` holds the dropout path to the mirror in
   the same way.
+- :func:`time_call`: one kernel-path call at the north-star width in a
+  given compute dtype, timed alone with its launches by kernel. In f32,
+  the experiments' default ("for strict parity", ``ExperimentConfig.
+  compute_dtype`` of the JAX package), this is the call ``run_bench`` does
+  not time.
 
 Run on the card::
 
     python -m multimodal_fl_security_tpu_torch.benchmarks.fused_kernel_bench
 
-prints the card's name and power limit and one JSON line per mode;
-``--profile`` adds :func:`profile_call`'s lines, without and with dropout.
+prints the card's name and power limit and one JSON line per mode (the
+f32 call after the bf16 bench); ``--profile`` adds :func:`profile_call`'s
+lines, without and with dropout.
 """
 
 from __future__ import annotations
@@ -244,6 +250,39 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     }
 
 
+def time_call(compute_dtype=torch.float32, device="cuda",
+              num_clients: int = 100, samples: int = 600,
+              iters: int = 3) -> Dict:
+    """ms per kernel-path call in ``compute_dtype`` at the north-star width
+    (the mean over ``iters`` calls, and each call's), after a warm-up call;
+    the launches by kernel of one call, and whether its parameters are
+    finite."""
+    from multimodal_fl_security_tpu_torch.bench import build_engine
+    from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+        fused_local_train,
+    )
+
+    engine, params, _ = build_engine(device, num_clients, samples)
+    kw = dict(learning_rate=LEARNING_RATE, momentum=0.9, clip_norm=1.0,
+              local_epochs=LOCAL_EPOCHS, compute_dtype=compute_dtype)
+
+    def call():
+        return fused_local_train(params, engine.arrays["image"],
+                                 engine.arrays["label"], engine.mask, **kw)
+
+    call()  # warm-up: builds and loads the kernels
+    _sync(device)
+    reset_kernel_launches()
+    out = call()
+    _sync(device)
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    runs = [_time_call(call, device, 1) for _ in range(iters)]
+    return {"mode": "call", "compute_dtype": str(compute_dtype),
+            "clients": num_clients, "ms_per_call": sum(runs) / iters,
+            "ms_runs": runs, "kernel_launches": launches,
+            "finite": bool(torch.isfinite(out).all())}
+
+
 def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
                  top: int = 12, use_dropout: bool = False) -> Dict:
     """``torch.profiler`` over one kernel-path call at the north-star width
@@ -313,6 +352,7 @@ def main() -> None:
     print(nvidia_smi_line())
     print(json.dumps(run_check()), flush=True)
     print(json.dumps(run_bench()), flush=True)
+    print(json.dumps(time_call(torch.float32)), flush=True)
     print(json.dumps(run_check(use_dropout=True)), flush=True)
     print(json.dumps(run_bench(use_dropout=True)), flush=True)
     if args.profile:

@@ -120,6 +120,19 @@ __device__ __forceinline__ float mft_bf16_at(const uint4& v, int e) {
       static_cast<unsigned short>(e & 1 ? w >> 16 : w & 0xffffu)));
 }
 
+// ------------------------------------------------ 3xTF32
+// (the f32 tensor-core kernels of gram.cu, client_stem_raw.cu and
+// client_conv.cu)
+
+// x rounded to TF32 (10 mantissa bits), to nearest even, as an f32 whose low
+// 13 bits are zero. An f32 operand a is split into hi = tf32(a) and
+// lo = tf32(a - hi); a b is then lo hi + hi lo + hi hi to ~2^-22 |a b|.
+__device__ __forceinline__ float mft_tf32_rne(float x) {
+  uint32_t b = __float_as_uint(x);
+  b += 0xfffu + ((b >> 13) & 1u);
+  return __uint_as_float(b & 0xffffe000u);
+}
+
 // ------------------------------------------------ copies and wgmma
 // (client_stem_raw.cu and probe_contract.cu)
 

@@ -4,8 +4,8 @@
 //
 // Replaces, in multimodal_fl_security_tpu:
 //  - ops/client_conv.py::client_stem_conv (K3, the Pallas kernel _stem_kernel):
-//    the raw 4x4 stride-2 stem convolution (mode raw) in f32, the checking
-//    mode (bf16 runs client_stem_raw.cu's stem_raw_tc);
+//    the raw 4x4 stride-2 stem convolution (mode raw) in f32 off K3's own
+//    geometry (K3's runs client_stem_raw.cu's kernels);
 //  - the convolution parts of ops/fused_kernel.py::fused_local_train (K4):
 //    the stem and conv2 of forward_impl with their epilogues, the stem's and
 //    conv2's weight gradients (with the stem's fold of its four embedded
@@ -27,9 +27,12 @@
 //  - conv_dgrad: the input gradient (conv2 only; the stem needs none).
 //  - conv2_wgrad_tc, stem_wgrad_tc, conv2_dgrad_tc: the same gradients for
 //    the compute dtype bf16, on the tensor cores (see their section below).
-//    conv_wgrad and conv_dgrad serve f32, the checking mode.
+//    conv_dgrad serves f32.
+//  - conv2_wgrad_tf32: conv2's weight gradient for f32 on the tensor cores
+//    in 3xTF32 (its section below); conv_wgrad serves the stem's in f32.
 //  - conv2_fwd_tc, stem_fwd_tc: the pooled forward for bf16 on the tensor
-//    cores. conv_fwd serves f32, the raw mode (K3) included.
+//    cores. conv_fwd serves f32, the raw mode (K3) off K3's geometry
+//    included (client_stem_raw.cu's kernels take K3's own).
 //
 // What bounds the CUDA-core kernels: at the north-star shapes (100 clients
 // x 32 samples per step) conv2's forward is 2*9*32*64*196 = 7.2 MFLOP per
@@ -48,6 +51,7 @@
 #include <cooperative_groups.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "client_common.cuh"
 
@@ -578,6 +582,299 @@ conv2_wgrad_tc_kernel(MftView x, MftView dp, MftView h, MftView arg,
     float s = 0.f;
     for (int p = 0; p < kC2Pooled; ++p) s += red[t * kC2Pooled + p];
     mft_st(gb, mft_off(gb, c, 0, t, 0, 0), mft_round(s, kBF16));
+  }
+}
+
+// ------------------------------------------- conv2's weight gradient, f32
+//
+// conv2_wgrad_tf32: conv2_wgrad_tc's GEMM in f32, on mma.sync.m16n8k8 in
+// 3xTF32 (each operand split into hi = tf32(a) and lo = tf32(a - hi),
+// rounded to nearest even, once as it is staged; lo hi + hi lo + hi hi in
+// f32 sums). One block per (kh, client), as conv2_wgrad_tc; 8 warps, warp w
+// the output channels 16 (w % 4) + [0, 16) and columns (kw, ci) 48 (w / 4)
+// + [0, 48). What changes with 32-bit operands:
+//  - ldmatrix.trans moves 16-bit elements only. ldmatrix without .trans
+//    gives lane l word l % 4 of row l / 4 of an 8 x 16-byte matrix, which is
+//    the TF32 A fragment's (row, k) for a [row][k] tile and the B
+//    fragment's (n, k) for a [n][k] tile. A = dZ^T is staged [co][m] and
+//    read by ldmatrix; B's k (the position m) is not contiguous in the
+//    NHWC input, so the input is staged transposed, [ci][halo pixel], and
+//    B's two words a lane are read as scalars (the shift by kw breaks
+//    ldmatrix's 16-byte row alignment).
+//  - m is the position on the halo's 16-wide rows, m = oy * 16 + ox (224 of
+//    them; ox = 14, 15 hold dZ = 0): the input under m shifted by (kh, kw)
+//    is halo pixel m + 16 kh + kw, so four consecutive k are four
+//    consecutive words of a [ci] row.
+//  - Rows are padded to 4 (mod 32) words: the scalar B loads (lanes: 8
+//    channels x 4 positions) and ldmatrix's eight row addresses fall on
+//    distinct banks. Shared memory: the input's hi and lo (2 x 33 KB) and
+//    dZ's (2 x 57 KB), 179 KB: one block an SM.
+//  - The tensor cores' f32 sums do not round to nearest (gram.cu): every 4
+//    k8 steps (12 mma) start a fresh accumulator, added in f32. A block sums
+//    its client's 32 x 224 positions in one order, with no atomics: two
+//    calls are bitwise equal.
+// What bounds it: the routed work is 5.78 GFLOP (0.035 ms in 3xTF32)
+// against 178 MB of operands (0.053 ms): bytes. The dense GEMM over the
+// 224 positions is 4.6x the routed work, and each k8 step of a warp reads
+// its fragments with 2 ldmatrix and 24 scalar loads for 18 mma: shared
+// memory bounds the design.
+
+constexpr int kTfXRow = kHaloPix + 4;      // 260 floats: [ci][halo pixel]
+constexpr int kTfZPos = kC2Hw * kHaloW;    // 224 positions m = oy * 16 + ox
+constexpr int kTfZRow = kTfZPos + 4;       // 228 floats: [co][m]
+constexpr int kTfPromote = 4;              // k8 steps a fresh accumulator takes
+constexpr size_t kTfWgradSmem =
+    sizeof(float) * 2 * (kC2In * kTfXRow + kC2Out * kTfZRow);
+
+static_assert(kTfZPos / 8 % kTfPromote == 0, "whole chunks of k8 steps");
+static_assert(kTfWgradSmem <= kMftMaxSmem, "one block an SM");
+
+// d += a (16 x 8, row-major) * b (8 x 8, column-major): tf32 in, f32 sums.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element e of a float4 (e known at compile time once the loops are
+// unrolled).
+__device__ __forceinline__ float mft_f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// conv2's pooled gradient, pooled output and argmax of one sample in f32,
+// as C2Windows<true> stages them in bf16: dense NCHW slabs (dp, h f32; arg
+// bytes; 16-byte aligned), pairs 4 (t + 256 k) .. + 3 with three vector
+// loads each, issued together. Other strides and types: C2Windows<false>.
+struct C2WindowsF32 {
+  static constexpr int kLoads = (kC2Wins / 4 + kTcThreads - 1) / kTcThreads;
+  static constexpr int kSlots = 4 * kLoads;
+  float4 dp[kLoads], h[kLoads];
+  uint32_t q[kLoads];
+
+  __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
+                                       const MftView& varg, int c, int n) {
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i0 = 4 * (threadIdx.x + k * kTcThreads);
+      if (i0 < kC2Wins) {
+        dp[k] = *reinterpret_cast<const float4*>(mft_slab<float>(vdp, c, n) +
+                                                 i0);
+        h[k] = *reinterpret_cast<const float4*>(mft_slab<float>(vh, c, n) +
+                                                i0);
+        q[k] = *reinterpret_cast<const uint32_t*>(
+            mft_slab<uint8_t>(varg, c, n) + i0);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ int pair(int slot) {
+    return 4 * (threadIdx.x + (slot / 4) * kTcThreads) + slot % 4;
+  }
+
+  template <typename Route>
+  __device__ __forceinline__ void route(Route&& put) const {
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const int i = pair(slot);
+      if (i < kC2Wins) {
+        const int k = slot / 4, e = slot % 4;
+        const float g = mft_f4_at(h[k], e) > 0.f ? mft_f4_at(dp[k], e) : 0.f;
+        put(slot, i / kC2Pooled, i % kC2Pooled,
+            static_cast<int>((q[k] >> (8 * e)) & 0xffu), g);
+      }
+    }
+  }
+};
+
+// conv2's input of one sample, split, into the transposed zero-bordered
+// tiles xh, xl [ci][halo pixel]. Dense: an NHWC f32 slab [14][14][32],
+// 16-byte aligned, as the stem's f32 forward writes it; seven 16-byte
+// loads a thread, issued together. Otherwise: any strides and types, one
+// element at a time.
+template <bool kDense>
+struct C2InputF32;
+
+template <>
+struct C2InputF32<true> {
+  static constexpr int kChunks = kC2Pos * kC2In / 4;  // 1568
+  static constexpr int kLoads = (kChunks + kTcThreads - 1) / kTcThreads;
+  float4 v[kLoads];
+
+  __device__ __forceinline__ void load(const MftView& x, int c, int n) {
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = threadIdx.x + k * kTcThreads;
+      if (i < kChunks) {
+        v[k] = *reinterpret_cast<const float4*>(mft_slab<float>(x, c, n) +
+                                                4 * i);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* xh, float* xl) const {
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = threadIdx.x + k * kTcThreads;
+      if (i < kChunks) {
+        const int p = i / 8, ci = 4 * (i % 8);  // 8 chunks a pixel
+        const int at = ci * kTfXRow + (p / kC2Hw + 1) * kHaloW + p % kC2Hw + 1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float a = mft_f4_at(v[k], e);
+          const float hi = mft_tf32_rne(a);
+          xh[at + e * kTfXRow] = hi;
+          xl[at + e * kTfXRow] = mft_tf32_rne(a - hi);
+        }
+      }
+    }
+  }
+};
+
+template <>
+struct C2InputF32<false> {
+  const MftView* x_;
+  int c_, n_;
+
+  __device__ __forceinline__ void load(const MftView& x, int c, int n) {
+    x_ = &x, c_ = c, n_ = n;
+  }
+
+  __device__ __forceinline__ void store(float* xh, float* xl) const {
+    for (int i = threadIdx.x; i < kC2Pos * kC2In; i += kTcThreads) {
+      const int p = i % kC2Pos, ci = i / kC2Pos;
+      const int iy = p / kC2Hw, ix = p % kC2Hw;
+      const float a = mft_ld(*x_, mft_off(*x_, c_, n_, ci, iy, ix));
+      const float hi = mft_tf32_rne(a);
+      const int at = ci * kTfXRow + (iy + 1) * kHaloW + ix + 1;
+      xh[at] = hi;
+      xl[at] = mft_tf32_rne(a - hi);
+    }
+  }
+};
+
+// One block per (kh, client): dW[co, ci, kh, kw] for every co, kw and ci,
+// and db (written by the kh = 0 block). While the tensor cores run on
+// sample n, sample n + 1's loads are in flight.
+template <bool kDenseX, bool kDenseZ>
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv2_wgrad_tf32_kernel(MftView x, MftView dp, MftView h, MftView arg,
+                        MftView gw, MftView gb, int batch) {
+  using Windows =
+      typename std::conditional<kDenseZ, C2WindowsF32, C2Windows<false>>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xh = reinterpret_cast<float*>(smem_raw);  // [ci][halo pixel]
+  float* xl = xh + kC2In * kTfXRow;
+  float* zh = xl + kC2In * kTfXRow;  // [co][m], m = oy * 16 + ox
+  float* zl = zh + kC2Out * kTfZRow;
+  const int kh = blockIdx.x;
+  const int c = blockIdx.y;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
+  const int gq = lane >> 2, tq = lane & 3;  // the fragments' row, column
+  const int co0 = (warp & 3) * 16;
+  const int j0 = (warp >> 2) * 48;
+  {
+    float* z = xh;
+    const int words = static_cast<int>(kTfWgradSmem / sizeof(float));
+    for (int i = t; i < words; i += kTcThreads) z[i] = 0.f;  // borders, pads
+  }
+  // A (ldmatrix x4): matrix li is rows co0 + 8 (li & 1) + [0, 8), k
+  // 4 (li >> 1) + [0, 4): a0 .. a3 of the m16n8k8 TF32 fragment.
+  const uint32_t a_off = static_cast<uint32_t>(
+      ((co0 + (li & 1) * 8 + lr) * kTfZRow + (li >> 1) * 4) * sizeof(float));
+  const uint32_t zh_addr = mft_smem_addr(zh) + a_off;
+  const uint32_t zl_addr = mft_smem_addr(zl) + a_off;
+  // B: column jj = j0 + 8 u + gq, (kw, ci) = (jj / 32, jj % 32), k = m
+  // = tq (b0) and tq + 4 (b1) of each k8 step: halo pixel m + 16 kh + kw.
+  int b_off[6];
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+    const int jj = j0 + 8 * u + gq;
+    b_off[u] = (jj % kC2In) * kTfXRow + kh * kHaloW + jj / kC2In + tq;
+  }
+  C2InputF32<kDenseX> xr;
+  Windows wr;
+  float acc[6][4] = {};
+  float db[Windows::kSlots] = {};  // each slot's sum over samples
+  xr.load(x, c, 0);
+  wr.load(dp, h, arg, c, 0);
+  for (int n = 0; n < batch; ++n) {
+    __syncthreads();  // the zero fill, or the previous sample's reads, done
+    xr.store(xh, xl);
+    // Window (co, p): positions (di, dj) = (0, 0), (0, 1) are adjacent in
+    // m, and (1, 0), (1, 1) one halo row (16) on: two 8-byte stores each
+    // for hi and lo.
+    wr.route([&](int slot, int co, int p, int q, float g) {
+      db[slot] += g;
+      const float gh = mft_tf32_rne(g), gl = mft_tf32_rne(g - gh);
+      const int m = 2 * (p / kC2Pw) * kHaloW + 2 * (p % kC2Pw);
+      float2* rh = reinterpret_cast<float2*>(zh + co * kTfZRow + m);
+      float2* rl = reinterpret_cast<float2*>(zl + co * kTfZRow + m);
+      rh[0] = make_float2(q == 0 ? gh : 0.f, q == 1 ? gh : 0.f);
+      rh[kHaloW / 2] = make_float2(q == 2 ? gh : 0.f, q == 3 ? gh : 0.f);
+      rl[0] = make_float2(q == 0 ? gl : 0.f, q == 1 ? gl : 0.f);
+      rl[kHaloW / 2] = make_float2(q == 2 ? gl : 0.f, q == 3 ? gl : 0.f);
+    });
+    __syncthreads();
+    if (n + 1 < batch) {
+      xr.load(x, c, n + 1);
+      wr.load(dp, h, arg, c, n + 1);
+    }
+    for (int s0 = 0; s0 < kTfZPos / 8; s0 += kTfPromote) {
+      float part[6][4] = {};
+#pragma unroll
+      for (int ds = 0; ds < kTfPromote; ++ds) {
+        const int s = s0 + ds;
+        uint32_t ahi[4], alo[4];
+        ldsm4(ahi, zh_addr + s * 8 * sizeof(float));
+        ldsm4(alo, zl_addr + s * 8 * sizeof(float));
+#pragma unroll
+        for (int u = 0; u < 6; ++u) {
+          const float* bh = xh + b_off[u] + 8 * s;
+          const float* bl = xl + b_off[u] + 8 * s;
+          const uint32_t bh0 = __float_as_uint(bh[0]);
+          const uint32_t bh1 = __float_as_uint(bh[4]);
+          mma1688_tf32(part[u], alo, bh0, bh1);  // the small terms first
+          mma1688_tf32(part[u], ahi, __float_as_uint(bl[0]),
+                       __float_as_uint(bl[4]));
+          mma1688_tf32(part[u], ahi, bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 6; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][e] += part[u][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = co0 + gq + (e >> 1) * 8;
+      const int jj = j0 + 8 * u + 2 * tq + (e & 1);
+      mft_st(gw, mft_off(gw, c, co, jj % kC2In, kh, jj / kC2In), acc[u][e]);
+    }
+  }
+  if (kh != 0) return;
+  __syncthreads();  // the tiles are read: their memory takes the pair sums
+  float* red = xh;  // [co][p]
+#pragma unroll
+  for (int slot = 0; slot < Windows::kSlots; ++slot) {
+    const int i = Windows::pair(slot);
+    if (i < kC2Wins) red[i] = db[slot];
+  }
+  __syncthreads();
+  if (t < kC2Out) {
+    float s = 0.f;
+    for (int p = 0; p < kC2Pooled; ++p) s += red[t * kC2Pooled + p];
+    mft_st(gb, mft_off(gb, c, 0, t, 0, 0), s);
   }
 }
 
@@ -1421,6 +1718,15 @@ cudaError_t launch_stem_fwd(const MftView* x, const MftView* w,
              : launch_stem_fwd<80, kDenseOut>(x, w, b, out, arg, a, st);
 }
 
+// What conv2_wgrad_tf32 takes: f32 compute, a pooled 3 x 3 SAME
+// convolution at stride 1 with conv2's shape; operands of any strides and
+// types.
+bool wgrad_tf32_takes(const ConvGeom& g) {
+  return g.cdt == kF32 && g.k == 3 && g.stride == 1 && g.pad == 1 && g.pool &&
+         g.cin == kC2In && g.cout == kC2Out && g.h == kC2Hw &&
+         g.w == kC2Hw && g.oh == kC2Hw && g.ow == kC2Hw;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1556,6 +1862,37 @@ int mft_conv_dgrad_tc(const MftView* dp, const MftView* h, const MftView* arg,
                           ? conv2_dgrad_tc_kernel<true>
                           : conv2_dgrad_tc_kernel<false>;
   return launch_tc(kernel, grid, smem, st, g.batch, dp, h, arg, w, dx);
+}
+
+// conv2's weight gradient for the compute dtype f32, in 3xTF32: the same
+// arguments as mft_conv_wgrad. What mft_conv2_wgrad_tf32_takes refuses is
+// refused, never handed to another kernel.
+int mft_conv2_wgrad_tf32_takes(const MftConvArgs* a) {
+  return wgrad_tf32_takes(a->g);
+}
+
+int mft_conv2_wgrad_tf32(const MftView* x, const MftView* dp,
+                         const MftView* h, const MftView* arg,
+                         const MftView* gw, const MftView* gb,
+                         const MftConvArgs* a, int device, void* stream) {
+  const ConvGeom& g = a->g;
+  if (a->clients <= 0 || g.batch <= 0 || !wgrad_tf32_takes(g)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  // The main path's layouts: the input NHWC and the maps NCHW, f32.
+  const bool dx = dense_slab(*x, kF32, 1, kC2Hw * kC2In, kC2In);
+  const bool dz = dense_slab(*dp, kF32, kC2Pooled, kC2Pw, 1) &&
+                  dense_slab(*h, kF32, kC2Pooled, kC2Pw, 1) &&
+                  dense_slab(*arg, kU8, kC2Pooled, kC2Pw, 1);
+  const auto kernel = dx ? (dz ? conv2_wgrad_tf32_kernel<true, true>
+                               : conv2_wgrad_tf32_kernel<true, false>)
+                         : (dz ? conv2_wgrad_tf32_kernel<false, true>
+                               : conv2_wgrad_tf32_kernel<false, false>);
+  return launch_tc(kernel, dim3(3, a->clients), kTfWgradSmem,
+                   static_cast<cudaStream_t>(stream), g.batch, x, dp, h, arg,
+                   gw, gb);
 }
 
 // The forward's tensor-core kernels, for the compute dtype bf16: the same

@@ -54,6 +54,8 @@
 
 #include <cstdint>
 
+#include "client_common.cuh"  // mft_tf32_rne: the 3xTF32 split
+
 namespace {
 
 constexpr int kTile = 128;         // rows of U per operand tile
@@ -122,14 +124,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest even, as an f32 whose low
-// 13 bits are zero.
-__device__ __forceinline__ float tf32_rne(float x) {
-  uint32_t b = __float_as_uint(x);
-  b += 0xfffu + ((b >> 13) & 1u);
-  return __uint_as_float(b & 0xffffe000u);
 }
 
 // d (+)= A (64 x 8) B^T (B: N x 8), both K-major in shared memory: tf32 in,
@@ -287,11 +281,13 @@ gram_tc_kernel(const float* __restrict__ u, const float* __restrict__ mu,
         } else {
           a = make_float4(0.f, 0.f, 0.f, 0.f);
         }
-        const float4 h = make_float4(tf32_rne(a.x), tf32_rne(a.y),
-                                     tf32_rne(a.z), tf32_rne(a.w));
+        const float4 h = make_float4(mft_tf32_rne(a.x), mft_tf32_rne(a.y),
+                                     mft_tf32_rne(a.z), mft_tf32_rne(a.w));
         h4[v] = h;  // lo is stored doubled (exact): see mma_stage
-        l4[v] = make_float4(2.f * tf32_rne(a.x - h.x), 2.f * tf32_rne(a.y - h.y),
-                            2.f * tf32_rne(a.z - h.z), 2.f * tf32_rne(a.w - h.w));
+        l4[v] = make_float4(2.f * mft_tf32_rne(a.x - h.x),
+                            2.f * mft_tf32_rne(a.y - h.y),
+                            2.f * mft_tf32_rne(a.z - h.z),
+                            2.f * mft_tf32_rne(a.w - h.w));
       }
     }
   };

@@ -4,8 +4,8 @@ Counterpart of ``multimodal_fl_security_tpu/ops/client_conv.py``
 (``client_stem_conv``, K3) and of the convolution parts of
 ``ops/fused_kernel.py::fused_local_train`` (K4; ``fused_train.py::
 forward_impl``'s stem and conv2 and their gradients). Every wrapper here
-launches a hand-written kernel of ``csrc/client_conv.cu`` (or, for K3 in
-bf16, ``csrc/client_stem_raw.cu``) for CUDA tensors, or raises, and runs its
+launches a hand-written kernel of ``csrc/client_conv.cu`` (or, for K3,
+``csrc/client_stem_raw.cu``) for CUDA tensors, or raises, and runs its
 ``*_plain`` version for CPU tensors.
 
 Tensors are passed as logical ``[C, B, channels, rows, cols]`` views of any
@@ -75,7 +75,8 @@ def _library() -> ctypes.CDLL:
     args = ctypes.POINTER(ConvArgs)
     for name, n_views in (("mft_conv_fwd", 5), ("mft_conv_wgrad", 6),
                           ("mft_conv_dgrad", 5), ("mft_conv_fwd_tc", 5),
-                          ("mft_conv_wgrad_tc", 6), ("mft_conv_dgrad_tc", 5)):
+                          ("mft_conv_wgrad_tc", 6), ("mft_conv_dgrad_tc", 5),
+                          ("mft_conv2_wgrad_tf32", 6)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_views + [args, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -83,6 +84,8 @@ def _library() -> ctypes.CDLL:
     lib.mft_conv_tc_kind.restype = ctypes.c_int
     lib.mft_conv_fwd_tc_kind.argtypes = [args, p]
     lib.mft_conv_fwd_tc_kind.restype = ctypes.c_int
+    lib.mft_conv2_wgrad_tf32_takes.argtypes = [args]
+    lib.mft_conv2_wgrad_tf32_takes.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -93,11 +96,13 @@ def _stem_raw_library() -> ctypes.CDLL:
     lib = _build.load("client_stem_raw")
     p = ctypes.POINTER(MftView)
     args = ctypes.POINTER(ConvArgs)
-    lib.mft_stem_raw_tc.argtypes = [p] * 3 + [args, ctypes.c_int,
-                                              ctypes.c_void_p]
-    lib.mft_stem_raw_tc.restype = ctypes.c_int
-    lib.mft_stem_raw_tc_takes.argtypes = [args, p]
-    lib.mft_stem_raw_tc_takes.restype = ctypes.c_int
+    for kernel in ("stem_raw_tc", "stem_raw_tf32"):
+        fn = getattr(lib, f"mft_{kernel}")
+        fn.argtypes = [p] * 3 + [args, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        takes = getattr(lib, f"mft_{kernel}_takes")
+        takes.argtypes = [args, p]
+        takes.restype = ctypes.c_int
     lib.mft_client_stem_raw_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_stem_raw_error_string.restype = ctypes.c_char_p
     return lib
@@ -187,10 +192,11 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     [C, C_out] and relu, returning the pooled map [C, B, C_out, OH/2, OW/2]
     and its argmax (uint8, q = di*2 + dj); without: the raw output and None.
     Outputs are in ``dtype``, stored NHWC when ``channels_last``. f32 runs
-    the CUDA-core kernel ``conv_fwd``; bf16 a tensor-core kernel,
-    ``conv2_fwd_tc`` or ``stem_fwd_tc`` pooled and ``stem_raw_tc`` raw (see
+    the CUDA-core kernel ``conv_fwd``, or ``stem_raw_tf32`` (3xTF32) raw at
+    K3's geometry; bf16 a tensor-core kernel, ``conv2_fwd_tc`` or
+    ``stem_fwd_tc`` pooled and ``stem_raw_tc`` raw (see
     :func:`_fwd_kernel_for`). ``conv_fwd.launches`` counts the launches of
-    all four, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    all five, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_fwd_plain(x, w, b, stride=stride, pad=pad, pool=pool,
                               dtype=dtype, channels_last=channels_last)
@@ -204,11 +210,12 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     shape = (x.shape[0], x.shape[1], w.shape[1], ph, pw)
     out = _alloc(shape, dtype, device, channels_last)
     arg = _alloc(shape, torch.uint8, device, channels_last) if pool else None
-    if kernel == "stem_raw_tc":
+    if kernel in ("stem_raw_tc", "stem_raw_tf32"):
         lib, prefix = _stem_raw_library(), "client_stem_raw"
         views = [xv, view(w, _WEIGHT_AXES), view(out, _IMAGE_AXES)]
-        err = lib.mft_stem_raw_tc(*[ctypes.byref(v) for v in views],
-                                  ctypes.byref(a), device.index, stream_of(x))
+        err = getattr(lib, f"mft_{kernel}")(
+            *[ctypes.byref(v) for v in views], ctypes.byref(a), device.index,
+            stream_of(x))
     else:
         prefix = "client_conv"
         views = [xv, view(w, _WEIGHT_AXES),
@@ -232,16 +239,21 @@ _TC_NONE, _TC_CONV2 = 0, 1
 
 def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
                     channels_last: bool) -> str:
-    """The forward kernel for ``a``: ``conv_fwd`` for f32. For bf16 a
-    tensor-core one: raw (K3), ``stem_raw_tc``, which takes K3's geometry
-    only (4x4, stride 2, pad 1, 28x28x8 -> 14x14x128, ``x`` in bf16, NHWC
-    with 16-byte aligned samples, the output NHWC); pooled, one that takes a 3x3 SAME
-    stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14),
-    ``conv2_fwd_tc``, or a stem's (1-8 -> 32 channels, ``x`` in f32),
-    ``stem_fwd_tc``. Any other bf16 call raises: it never drops to the
-    CUDA-core kernel."""
+    """The forward kernel for ``a``. Raw (K3) at K3's geometry (4x4,
+    stride 2, pad 1, 28x28x8 -> 14x14x128, ``x`` in the compute dtype and
+    NHWC with 16-byte aligned samples, the output NHWC): ``stem_raw_tf32``
+    for f32, ``stem_raw_tc`` for bf16. Any other f32 call, pooled or raw,
+    is ``conv_fwd``'s: a route chosen here, before the launch. For bf16
+    pooled, a tensor-core kernel that takes a 3x3 SAME stride-1 geometry
+    with conv2's shape (32 -> 64 channels at 14x14), ``conv2_fwd_tc``, or a
+    stem's (1-8 -> 32 channels, ``x`` in f32), ``stem_fwd_tc``. Any other
+    bf16 call raises: it never drops to the CUDA-core kernel."""
     g = a.g
     if g.cdt == DTYPE_CODES[torch.float32]:
+        if not g.pool and channels_last and \
+                _stem_raw_library().mft_stem_raw_tf32_takes(
+                    ctypes.byref(a), ctypes.byref(x)):
+            return "stem_raw_tf32"
         return "conv_fwd"
     if not g.pool:
         if channels_last and _stem_raw_library().mft_stem_raw_tc_takes(
@@ -271,8 +283,11 @@ def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
 
 def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
                 x: Optional[MftView], wrapper: str) -> str:
-    """The kernel that serves ``a``'s compute dtype: the CUDA-core one for
-    f32; for bf16 the tensor-core one, which takes a pooled 3x3 SAME
+    """The kernel that serves ``a``'s compute dtype. For f32 the CUDA-core
+    one, but conv2's weight gradient (a pooled 3x3 SAME stride-1 geometry
+    with conv2's shape, operands of any strides), ``conv2_wgrad_tf32`` in
+    3xTF32 on the tensor cores: a route chosen here, before the launch. For
+    bf16 the tensor-core one, which takes a pooled 3x3 SAME
     stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14) or,
     for the weight gradient only (``x`` the input's view, None for the input
     gradient), a stem's (1-8 -> 32 channels, its input in f32), and ``dp``
@@ -281,6 +296,9 @@ def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
     maps NCHW and its input NHWC, the stem's maps NHWC) with vector loads,
     any other strides one element at a time."""
     if a.g.cdt == DTYPE_CODES[torch.float32]:
+        if wrapper == "conv_wgrad" and lib.mft_conv2_wgrad_tf32_takes(
+                ctypes.byref(a)):
+            return "conv2_wgrad_tf32"
         return wrapper
     kind = lib.mft_conv_tc_kind(ctypes.byref(a), ctypes.byref(dp),
                                 None if x is None else ctypes.byref(x))
@@ -331,9 +349,10 @@ def conv_wgrad(x: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
     the gradient buffer). ``x`` is the layer's input, ``dp`` the pooled
     output's gradient, ``h`` the pooled output and ``arg`` its argmax.
     For the stem this is the fold of w4's four copies into the 3x3 kernel.
-    f32 runs the CUDA-core kernel, bf16 the tensor-core one (see
-    :func:`_kernel_for`); ``conv_wgrad.launches`` counts the launches of
-    both, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    f32 runs ``conv2_wgrad_tf32`` for conv2 and the CUDA-core kernel for
+    the stem, bf16 the tensor-core one (see :func:`_kernel_for`);
+    ``conv_wgrad.launches`` counts the launches of all three,
+    :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_wgrad_plain(x, dp, h, arg, gw, gb, stride=stride, pad=pad,
                                 dtype=dtype)
@@ -439,8 +458,9 @@ def client_stem_conv(x_flat: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     [C, 4, 4, cin, 128] (HWIO) -> the per-client 4x4, stride-2, pad-1
     convolution [C, B, 14, 14, 128], no epilogue, in ``x_flat``'s dtype
     (bf16 or f32; f32 accumulation). Runs :func:`conv_fwd`'s kernel on CUDA
-    (``stem_raw_tc`` in bf16, ``conv_fwd`` in f32) and the plain version on
-    the CPU."""
+    (``stem_raw_tc`` in bf16, ``stem_raw_tf32`` in f32, at cin = 8 with
+    16-byte aligned samples; ``conv_fwd`` in f32 otherwise) and the plain
+    version on the CPU."""
     if x_flat.device.type == "cpu":
         return client_stem_conv_plain(x_flat, w4)
     x, w = _stem_operands(x_flat, w4)

@@ -57,7 +57,7 @@ def test_gram_matches_pallas_gram(c, d):
 
 def tf32_rne(a):
     """f32 values rounded to TF32 (10 mantissa bits), to nearest even: the
-    kernel's ``tf32_rne`` on the bits."""
+    kernel's ``mft_tf32_rne`` (``client_common.cuh``) on the bits."""
     b = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
     b = (b + np.uint32(0xFFF) + ((b >> np.uint32(13)) & np.uint32(1))) \
         & np.uint32(0xFFFFE000)
