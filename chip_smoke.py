@@ -15,7 +15,7 @@ paths and fails loudly on anything wrong. Phases, in order:
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
    the bf16 forward, the conv gradients and fc1's forward and backward, and
    the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
-   ``conv2_wgrad_tf32``).
+   ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
@@ -47,10 +47,11 @@ paths and fails loudly on anything wrong. Phases, in order:
    ``client_sgd.cu`` against its plain version on one step's real
    activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
    and backward; CE; SGD at [100, 421,642]), in f32 with TF32 off (max
-   |kernel - plain| <= 1e-5 * max|plain|; conv2's weight gradient, on
-   ``conv2_wgrad_tf32``, is held at that tolerance to the exact (f64)
-   gradient instead, its error there to at most 4x the f32 plain
-   version's, and its distance from the plain version printed) and in
+   |kernel - plain| <= 1e-5 * max|plain|; conv2's weight and input
+   gradients, on ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32``, are held
+   at that tolerance to the exact (f64) gradients instead, their errors
+   there to at most 4x the f32 plain versions', and their distances from
+   the plain versions printed) and in
    bf16 (<= 1e-2 * max|plain|, one rounding apart; the forward convs, fc1's
    forward and backward and the conv gradients on the tensor-core kernels;
    each pooled conv's argmax equal to the plain version's wherever its window gap exceeds that tolerance,
@@ -60,15 +61,18 @@ paths and fails loudly on anything wrong. Phases, in order:
    of it, the median kept, the spread printed): conv2's forward and
    gradient kernels in both dtypes, the stem's weight gradient in f32
    (``conv_wgrad``, in the row ``conv_wgrad_stem``), the stem's forward
-   and fc1's and fc2's forward in the bf16 path's kernels, the rest in bf16, the stem's bf16 weight gradient
+   and fc1's forward and backward also in f32 (rows ``conv_fwd_stem``,
+   ``dense_fwd_fc1``, ``dense_bwd_fc1``), fc2's forward in the bf16 path's
+   kernel, the rest in bf16, the stem's bf16 weight gradient
    with its library call and bound; f32 bounds count operations at the
    3xTF32 rate and print the f32 CUDA-core figure beside them;
    fc1's backward beside the two ``torch.bmm`` and the sum that compute
    the same outputs (a reference, not a single library call);
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
    ``mirror_local_train`` within 1e-4 at f32; per step 1 ``conv_wgrad``,
-   the stem's, and 1 ``conv2_wgrad_tf32``, every other conv and dense
-   launch on the CUDA-core kernels); (c) ``run_bench()`` at full width in
+   the stem's, 1 ``conv2_wgrad_tf32`` and 1 ``conv2_dgrad_tf32``, every
+   other conv and dense launch on the CUDA-core kernels); (c)
+   ``run_bench()`` at full width in
    bf16:
    finite parameters, 12 launches per step x 38 steps, by kernel 38 each
    on ``conv2_fwd_tc``, ``stem_fwd_tc``, ``dense_fwd_tc``,
@@ -93,7 +97,10 @@ paths and fails loudly on anything wrong. Phases, in order:
    probe's ``torch.matmul`` / ``torch.einsum`` of its own function (median
    of three), and per kernel the one PyTorch call that computes the same
    function, where there is one; then each such kernel against that call
-   in 5 rounds of turns: the factor's median and range.
+   in 5 rounds of turns: the factor's median and range; for ``max2`` and
+   ``carry_sum`` (and their library calls) the device time of one launch
+   and the host time of one call, apart
+   (``benchmarks/launch_split.py``).
 9. The autodiff probe set (K6): ``benchmarks/ad_in_kernel_probe.
    run_probes()``, every probe's gradient through the hand-written backward
    kernels against ``torch.autograd`` of the plain body, at the JAX probe's
@@ -225,11 +232,12 @@ TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
               "stem_wgrad_tc_kernel",
               "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
               "dense_bwd_tc_kernel", "stem_raw_tf32_kernel",
-              "conv2_wgrad_tf32_kernel")
+              "conv2_wgrad_tf32_kernel", "conv2_dgrad_tf32_kernel")
 #: the instruction phase 2 requires in a 3xTF32 kernel's SASS: HGMMA for
 #: wgmma, HMMA for mma.sync
 TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
-            "conv2_wgrad_tf32_kernel": "HMMA"}
+            "conv2_wgrad_tf32_kernel": "HMMA",
+            "conv2_dgrad_tf32_kernel": "HMMA"}
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
 DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
 
@@ -821,6 +829,39 @@ def wgrad_f64(xin: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
     return gw.view(w.shape), dz.sum(dim=(1, 3, 4))
 
 
+def dgrad_f64(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """The exact input gradient of a pooled 3x3 SAME stride-1 conv from
+    ``conv_dgrad``'s operands, summed in f64 (``conv2d_input``)."""
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+
+    c, b = dp.shape[:2]
+    hw = (2 * dp.shape[-2], 2 * dp.shape[-1])
+    dz = cc._dense_dz(dp, h, arg, *hw).double()
+    dx = torch.nn.grad.conv2d_input(
+        (b, c * w.shape[2], *hw), w.double().reshape(-1, *w.shape[2:]),
+        cc._grouped(dz), padding=1, groups=c)
+    return cc._ungrouped(dx, c)
+
+
+def held_f64(what: str, got: torch.Tensor, exact: torch.Tensor,
+             plain: torch.Tensor) -> tuple:
+    """A 3xTF32 kernel's f32 output held to the exact (f64) one at
+    FUSED_REL_TOL, and its error there to at most F64_FACTOR times the f32
+    plain version's (whose f32 sums need not keep f32's accuracy); prints
+    its distance from the plain version. Returns (its error against f64,
+    that distance)."""
+    err = held(what, got, exact, torch.float32, against="f64")
+    e_p = float((plain.double() - exact).abs().max())
+    d_p = float((got - plain).abs().max())
+    print(f"[fused] {what} f32: max|kernel-plain| {d_p:.6g}; vs f64: plain "
+          f"{e_p:.6g}")
+    if not err <= F64_FACTOR * e_p:
+        raise AssertionError(f"{what} f32: error against f64 {err} > "
+                             f"{F64_FACTOR} x the plain version's {e_p}")
+    return err, d_p
+
+
 def held_argmax(what: str, got: torch.Tensor, want: torch.Tensor,
                 x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> float:
     """The share of a pooled conv kernel's argmax bytes ``got`` equal to its
@@ -955,35 +996,28 @@ def phase_fused_kernels() -> dict:
         got2, plain2 = (wgrad(fn, h1, dh3, h3, a3, v["conv2.weight"],
                               v["conv2.bias"], dt)
                         for fn in (cc.conv_wgrad, cc.conv_wgrad_plain))
+        dh1 = cc.conv_dgrad(dh3, h3, a3, v["conv2.weight"], (14, 14),
+                            dtype=dt, channels_last=True)
+        plain_dh1 = cc.conv_dgrad_plain(dh3, h3, a3, v["conv2.weight"],
+                                        (14, 14), dtype=dt)
         if dt == f32:
-            # conv2_wgrad_tf32's 3xTF32 sums keep f32's accuracy; the plain
-            # version's f32 sums over 32 x 196 positions need not, so the
-            # kernel is held to the exact (f64) gradient, its error there to
-            # at most F64_FACTOR times the plain version's, and its
-            # distance from the plain version is printed.
+            # conv2_wgrad_tf32's and conv2_dgrad_tf32's 3xTF32 sums keep
+            # f32's accuracy; the plain versions' f32 sums need not, so the
+            # kernels are held to the exact (f64) gradients.
             exact = wgrad_f64(h1, dh3, h3, a3, v["conv2.weight"])
             for name, got, ref, pl in zip(("dW", "db"), got2, exact, plain2):
-                errs["conv_wgrad", dt, name] = held(
-                    f"conv2 wgrad {name}", got, ref, dt, against="f64")
-                e_p = float((pl.double() - ref).abs().max())
-                d_p = float((got - pl).abs().max())
-                errs["conv_wgrad_vs_plain", dt, name] = d_p
-                print(f"[fused] conv2 wgrad {name} f32: max|kernel-plain| "
-                      f"{d_p:.6g}; vs f64: plain {e_p:.6g}")
-                if not errs["conv_wgrad", dt, name] <= F64_FACTOR * e_p:
-                    raise AssertionError(
-                        f"conv2 wgrad {name} f32: error against f64 "
-                        f"{errs['conv_wgrad', dt, name]} > {F64_FACTOR} x "
-                        f"the plain version's {e_p}")
+                errs["conv_wgrad", dt, name], \
+                    errs["conv_wgrad_vs_plain", dt, name] = held_f64(
+                        f"conv2 wgrad {name}", got, ref, pl)
+            errs["conv_dgrad", dt], errs["conv_dgrad_vs_plain", dt] = \
+                held_f64("conv2 dgrad [100, 32, 32, 14, 14]", dh1,
+                         dgrad_f64(dh3, h3, a3, v["conv2.weight"]), plain_dh1)
         else:
             for name, got, ref in zip(("dW", "db"), got2, plain2):
                 errs["conv_wgrad", dt, name] = held(f"conv2 wgrad {name}",
                                                     got, ref, dt)
-        dh1 = cc.conv_dgrad(dh3, h3, a3, v["conv2.weight"], (14, 14),
-                            dtype=dt, channels_last=True)
-        errs["conv_dgrad", dt] = held(
-            "conv2 dgrad [100, 32, 32, 14, 14]", dh1, cc.conv_dgrad_plain(
-                dh3, h3, a3, v["conv2.weight"], (14, 14), dtype=dt), dt)
+            errs["conv_dgrad", dt] = held(
+                "conv2 dgrad [100, 32, 32, 14, 14]", dh1, plain_dh1, dt)
         for name, got, ref in zip(("dW", "db"), wgrad(
                 cc.conv_wgrad, x, dh1, h1, a1, v["conv1.weight"],
                 v["conv1.bias"], dt), wgrad(
@@ -1009,7 +1043,7 @@ def phase_fused_kernels() -> dict:
     errs["sgd_update", f32] = held("sgd params [100, 421,642]", pk, pp, f32)
 
     # Times, at each kernel's dtype (bf16 for the path's kernels, f32 for
-    # the f32 path's conv kernels), with bounds.
+    # the f32 path's), with bounds.
     t, t32 = timed[bf16], timed[f32]
     w2, b2 = v["conv2.weight"], v["conv2.bias"]
     w1, b1 = v["fc1.weight"], v["fc1.bias"]
@@ -1027,7 +1061,7 @@ def phase_fused_kernels() -> dict:
     def conv_grads(dt, wgrad_name, dgrad_name):
         """conv2's weight and input gradients at dtype dt, by the names of
         the kernels that run them: bf16 the tensor-core ones, f32
-        conv2_wgrad_tf32 and the CUDA-core conv_dgrad."""
+        conv2_wgrad_tf32 and conv2_dgrad_tf32 (3xTF32)."""
         a = timed[dt]
         xgd = cc._grouped(a["h1"]).contiguous()
         wgd = w2.to(dt).reshape(-1, *w2.shape[2:])
@@ -1087,7 +1121,32 @@ def phase_fused_kernels() -> dict:
                              b2.reshape(-1), padding=1, groups=c),
             nbytes(t32["h1"], w2, b2, t32["h3"], t32["a3"]), conv2_flops,
             f32),
-        **conv_grads(f32, "conv2_wgrad_tf32", "conv_dgrad"),
+        # The stem's and fc1's f32 forward and fc1's f32 backward: the f32
+        # call's CUDA-core kernels, at its own activations.
+        "conv_fwd_stem": (
+            lambda: cc.conv_fwd(x, w1c, b1c, channels_last=True),
+            lambda: cc.conv_fwd_plain(x, w1c, b1c, channels_last=True),
+            lambda: F.conv2d(xsg32, w1c.reshape(-1, 1, 3, 3),
+                             b1c.reshape(-1), padding=1, groups=c),
+            nbytes(x, w1c, b1c, t32["h1"], t32["a1"]),
+            2 * c * 32 * 32 * 9 * 28 * 28, f32),
+        "dense_fwd_fc1": (
+            lambda: cd.dense_fwd(t32["f3"], w1, b1, relu=True, wdtype=f32,
+                                 out_dtype=f32),
+            lambda: cd.dense_fwd_plain(t32["f3"], w1, b1, relu=True,
+                                       wdtype=f32, out_dtype=f32),
+            lambda: torch.baddbmm(b1.unsqueeze(1), t32["f3"],
+                                  w1.transpose(1, 2)),
+            nbytes(t32["f3"], w1, b1, t32["h4"]), 2 * c * 32 * 3136 * 128,
+            f32),
+        "dense_bwd_fc1": (
+            lambda: cd.dense_bwd(t32["dz4"], t32["f3"], w1, gw1, gb1,
+                                 wdtype=f32, gdtype=f32, dx_dtype=f32),
+            lambda: cd.dense_bwd_plain(t32["dz4"], t32["f3"], w1, gw1, gb1,
+                                       wdtype=f32, gdtype=f32, dx_dtype=f32),
+            None, nbytes(t32["dz4"], t32["f3"], w1, gw1, gb1, t32["f3"]),
+            4 * c * 32 * 3136 * 128, f32),
+        **conv_grads(f32, "conv2_wgrad_tf32", "conv2_dgrad_tf32"),
         **conv_grads(bf16, "conv_wgrad_tc", "conv_dgrad_tc"),
         # The stem's weight gradient in f32: the CUDA-core kernel
         # (conv_wgrad; until conv2's moved to conv2_wgrad_tf32, this row's
@@ -1158,7 +1217,10 @@ def phase_fused_kernels() -> dict:
                "dense_fwd_tc": ("dense_fwd", bf16),
                "conv2_wgrad_tf32": ("conv_wgrad", f32, "dW"),
                "conv_wgrad_stem": ("stem_wgrad", f32, "dW"),
-               "conv_dgrad": ("conv_dgrad", f32),
+               "conv2_dgrad_tf32": ("conv_dgrad", f32),
+               "conv_fwd_stem": ("stem", f32),
+               "dense_fwd_fc1": ("dense_fwd", f32),
+               "dense_bwd_fc1": ("dense_bwd", f32, "dW"),
                "conv_wgrad_tc": ("conv_wgrad", bf16, "dW"),
                "conv_dgrad_tc": ("conv_dgrad", bf16),
                "dense_fwd": ("fc2", bf16),
@@ -1197,17 +1259,21 @@ def phase_fused_kernels() -> dict:
         if name == "conv2_wgrad_tf32":  # max_abs_err: against f64 sums
             rows[name]["max_abs_err_vs_f32_plain"] = errs[
                 "conv_wgrad_vs_plain", f32, "dW"]
+        if name == "conv2_dgrad_tf32":
+            rows[name]["max_abs_err_vs_f32_plain"] = errs[
+                "conv_dgrad_vs_plain", f32]
     # fc1's backward has no single library call: as a reference, the two
-    # torch.bmm (dW = dz^T x, dx = dz W in bf16, W cast from the f32
+    # torch.bmm (dW = dz^T x, dx = dz W; in bf16 W cast from the f32
     # buffer) and the sum (db) that compute the same outputs.
-    dz4, f3 = t["dz4"], t["f3"]
-    ref_runs = sorted(time_ms(lambda _: (
-        torch.bmm(dz4.transpose(1, 2), f3), torch.bmm(dz4, w1.to(bf16)),
-        dz4.float().sum(dim=1)), None) for _ in range(3))
-    rows["dense_bwd_tc"]["reference_ms"] = ref_runs[1]
-    print(f"[fused] dense_bwd_tc bf16: reference (two torch.bmm, W's cast "
-          f"and the sum) {ref_runs[1]:.4f} ms (runs {ref_runs[0]:.4f}-"
-          f"{ref_runs[2]:.4f})")
+    for name, dt in (("dense_bwd_tc", bf16), ("dense_bwd_fc1", f32)):
+        dz4, f3 = timed[dt]["dz4"], timed[dt]["f3"]
+        ref_runs = sorted(time_ms(lambda _: (
+            torch.bmm(dz4.transpose(1, 2), f3), torch.bmm(dz4, w1.to(dt)),
+            dz4.float().sum(dim=1)), None) for _ in range(3))
+        rows[name]["reference_ms"] = ref_runs[1]
+        print(f"[fused] {name}: reference (two torch.bmm, W's cast and the "
+              f"sum) {ref_runs[1]:.4f} ms (runs {ref_runs[0]:.4f}-"
+              f"{ref_runs[2]:.4f})")
     # The other use of a kernel on the path (the stem's weight gradient),
     # with its library call and bound.
     dz1g = cc._grouped(cc._dense_dz(t["dh1"], t["h1"], t["a1"], 28, 28)
@@ -1279,12 +1345,17 @@ def phase_fused_path() -> dict:
     if failures:
         raise AssertionError("fused local training: " + "; ".join(failures))
     check_kernels("run_bench (bf16)", bench, tc_steps=38)
-    # The kernels' rows: the tensor-core ones and fc2's dense_fwd from the
-    # bf16 path, the f32 path's conv kernels from run_check.
-    cuda_core = ("conv_fwd", "conv2_wgrad_tf32", "conv_dgrad")
+    # The kernels' rows: the tensor-core ones and fc2's dense_fwd and
+    # dense_bwd from the bf16 path, the f32 path's kernels from run_check
+    # (the rows of the stem's and fc1's f32 kernels: those kernels' counts).
+    f32_path = check["kernel_launches"]
     return {**bench["launches"], **bench["kernel_launches"],
-            **{k: check["kernel_launches"][k] for k in cuda_core},
-            "conv_wgrad_stem": check["kernel_launches"]["conv_wgrad"]}
+            **{k: f32_path[k] for k in ("conv_fwd", "conv2_wgrad_tf32",
+                                        "conv2_dgrad_tf32")},
+            "conv_wgrad_stem": f32_path["conv_wgrad"],
+            "conv_fwd_stem": f32_path["conv_fwd"],
+            "dense_fwd_fc1": f32_path["dense_fwd"],
+            "dense_bwd_fc1": f32_path["dense_bwd"]}
 
 
 def phase_fused_f32_call() -> dict:
@@ -1303,7 +1374,7 @@ def phase_fused_f32_call() -> dict:
           f"kernel {res['kernel_launches']}")
     steps = 38
     want = {"conv_fwd": 2 * steps, "conv_wgrad": steps,
-            "conv2_wgrad_tf32": steps, "conv_dgrad": steps,
+            "conv2_wgrad_tf32": steps, "conv2_dgrad_tf32": steps,
             "dense_fwd": 2 * steps, "dense_bwd": 2 * steps}
     if not res["finite"] or res["kernel_launches"] != want:
         raise AssertionError(f"f32 call: finite {res['finite']}, launches "
@@ -1418,13 +1489,15 @@ def check_kernels(what: str, result: dict, f32_steps: int = 0,
     """Every launch of the conv and dense wrappers went through the kernel
     of its dtype, per step: two forward convs, two weight gradients and one
     input gradient, and fc1's and fc2's forward and backward; in f32 all on
-    the CUDA-core kernels but conv2's weight gradient (conv2_wgrad_tf32), in
-    bf16 all on the tensor-core ones but fc2's (f32 weights)."""
+    the CUDA-core kernels but conv2's gradients (conv2_wgrad_tf32,
+    conv2_dgrad_tf32), in bf16 all on the tensor-core ones but fc2's (f32
+    weights)."""
     want = {"conv_fwd": 2 * f32_steps, "conv2_fwd_tc": tc_steps,
             "stem_fwd_tc": tc_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
             "conv_wgrad": f32_steps, "conv2_wgrad_tf32": f32_steps,
-            "conv_wgrad_tc": 2 * tc_steps, "conv_dgrad": f32_steps,
-            "conv_dgrad_tc": tc_steps, "dense_fwd": 2 * f32_steps + tc_steps,
+            "conv_wgrad_tc": 2 * tc_steps,
+            "conv_dgrad_tc": tc_steps, "conv2_dgrad_tf32": f32_steps,
+            "dense_fwd": 2 * f32_steps + tc_steps,
             "dense_fwd_tc": tc_steps, "dense_bwd": 2 * f32_steps + tc_steps,
             "dense_bwd_tc": tc_steps}
     got = result["kernel_launches"]
@@ -1513,6 +1586,7 @@ def phase_probes() -> tuple:
     launches, launches by wrapper)."""
     import torch.nn.functional as F
 
+    from multimodal_fl_security_tpu_torch.benchmarks import launch_split
     from multimodal_fl_security_tpu_torch.benchmarks import mosaic_probe as mp
 
     run = run_counted(mp.run_probes, "K5")
@@ -1591,6 +1665,21 @@ def phase_probes() -> tuple:
             args = inputs[probe.name]
             rows[name].update(stable_factor(
                 "K5", name, lambda: probe.kernel(*args), lib, "library"))
+    # max2's and carry_sum's time a call, apart: the device time of one
+    # launch and the host time of one wrapper call, beside their library
+    # calls' (benchmarks/launch_split.py).
+    split = launch_split.measure()
+    for name, lib_name in (("max2", "amax"), ("carry_sum", "sum")):
+        k, lib_split = split[name], split[lib_name]
+        rows[name]["launch_split_us"] = k
+        rows[name]["library_launch_split_us"] = lib_split
+        dev = [f"{r['device_us_profiler']:.2f} us"
+               if r["device_us_profiler"] is not None else "not measured"
+               for r in (k, lib_split)]
+        print(f"[K5] {name} a call: device {dev[0]} (profiler), host "
+              f"{k['host_us']:.2f} us; {lib_name}: device {dev[1]}, host "
+              f"{lib_split['host_us']:.2f} us; factor over {lib_name} "
+              f"(5 rounds) {rows[name]['factor_vs_library_median']:.3f}")
     # The contraction at its longest k, beside its library call.
     rows["contract"]["ms_einsum_brl_rlf"] = times["einsum_brl_rlf"][0]
     rows["contract"]["library_ms_einsum_brl_rlf"] = \

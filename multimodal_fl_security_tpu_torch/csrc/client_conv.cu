@@ -24,12 +24,12 @@
 //    the kernel. The gradient reaches the 3x3 kernel directly, which is the
 //    fold P^T of the four embedded copies. Sums run over the batch in a fixed
 //    order, with no atomics: two calls are bitwise equal.
-//  - conv_dgrad: the input gradient (conv2 only; the stem needs none).
-//  - conv2_wgrad_tc, stem_wgrad_tc, conv2_dgrad_tc: the same gradients for
-//    the compute dtype bf16, on the tensor cores (see their section below).
-//    conv_dgrad serves f32.
-//  - conv2_wgrad_tf32: conv2's weight gradient for f32 on the tensor cores
-//    in 3xTF32 (its section below); conv_wgrad serves the stem's in f32.
+//  - conv2_wgrad_tc, stem_wgrad_tc: the same gradients for the compute
+//    dtype bf16, on the tensor cores (see their section below), and
+//    conv2_dgrad_tc conv2's input gradient (the stem needs none).
+//  - conv2_wgrad_tf32, conv2_dgrad_tf32: conv2's weight and input
+//    gradients for f32 on the tensor cores in 3xTF32 (their sections
+//    below); conv_wgrad serves the stem's weight gradient in f32.
 //  - conv2_fwd_tc, stem_fwd_tc: the pooled forward for bf16 on the tensor
 //    cores. conv_fwd serves f32, the raw mode (K3) off K3's geometry
 //    included (client_stem_raw.cu's kernels take K3's own).
@@ -42,11 +42,11 @@
 // shared-memory words per FMA, so shared-memory bandwidth (~7e12 words/s
 // over the card) bounds them at ~3 ms per conv2 pass, far above the HBM and
 // tensor-core floors.
-// Design: one block per (client, sample) for the forward and the input
-// gradient, with the client's weights (conv2: 72 KB in f32) and the sample
-// (conv2: 25 KB) staged once in shared memory; one block per (client,
-// output channel) for the weight gradient, whose threads split the weights
-// and the batch and add their partial sums in a fixed order.
+// Design: one block per (client, sample) for the forward, with the
+// client's weights (conv2: 72 KB in f32) and the sample (conv2: 25 KB)
+// staged once in shared memory; one block per (client, output channel) for
+// the weight gradient, whose threads split the weights and the batch and
+// add their partial sums in a fixed order.
 
 #include <cooperative_groups.h>
 
@@ -206,65 +206,6 @@ __global__ void conv_wgrad_kernel(MftView x, MftView dp, MftView h,
   }
 }
 
-// One block per (sample, client); stride 1 only.
-__global__ void __launch_bounds__(kThreads)
-conv_dgrad_kernel(MftView dp, MftView h, MftView arg, MftView w, MftView dx,
-                  ConvGeom g) {
-  extern __shared__ float smem[];
-  const int n = blockIdx.x;
-  const int c = blockIdx.y;
-  const int nw = g.k * g.k * g.cout * g.cin;
-  float* ws = smem;       // [kh][kw][co][ci]
-  float* dz = smem + nw;  // [oy][ox][co], the conv output's gradient
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
-    const int ci = i % g.cin;
-    int r = i / g.cin;
-    const int co = r % g.cout;
-    r /= g.cout;
-    const int kw = r % g.k;
-    const int kh = r / g.k;
-    ws[i] = mft_round(mft_ld(w, mft_off(w, c, co, ci, kh, kw)), g.cdt);
-  }
-  const int nz = g.oh * g.ow * g.cout;
-  for (int i = threadIdx.x; i < nz; i += blockDim.x) dz[i] = 0.f;
-  __syncthreads();
-  const int pw = g.ow / 2;
-  const int np = (g.oh / 2) * pw * g.cout;
-  for (int i = threadIdx.x; i < np; i += blockDim.x) {
-    const int co = i % g.cout;
-    const int r = i / g.cout;
-    const int oi = r / pw;
-    const int oj = r % pw;
-    if (!(mft_ld(h, mft_off(h, c, n, co, oi, oj)) > 0.f)) continue;
-    const int q = static_cast<int>(mft_ld(arg, mft_off(arg, c, n, co, oi, oj)));
-    const int oy = 2 * oi + (q >> 1);
-    const int ox = 2 * oj + (q & 1);
-    dz[(oy * g.ow + ox) * g.cout + co] =
-        mft_ld(dp, mft_off(dp, c, n, co, oi, oj));
-  }
-  __syncthreads();
-  const int nx = g.h * g.w * g.cin;
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    const int ci = i % g.cin;
-    const int r = i / g.cin;
-    const int y = r / g.w;
-    const int xx = r % g.w;
-    float acc = 0.f;
-    for (int kh = 0; kh < g.k; ++kh) {
-      const int oy = y + g.pad - kh;
-      if (oy < 0 || oy >= g.oh) continue;
-      for (int kw = 0; kw < g.k; ++kw) {
-        const int ox = xx + g.pad - kw;
-        if (ox < 0 || ox >= g.ow) continue;
-        const float* zp = dz + (oy * g.ow + ox) * g.cout;
-        const float* wp = ws + (kh * g.k + kw) * g.cout * g.cin + ci;
-        for (int co = 0; co < g.cout; ++co) acc += zp[co] * wp[co * g.cin];
-      }
-    }
-    mft_st(dx, mft_off(dx, c, n, ci, y, xx), acc);
-  }
-}
-
 // ------------------------------------------------------------ tensor cores
 //
 // The weight and input gradients for the compute dtype bf16, on Hopper's
@@ -349,12 +290,13 @@ __device__ __forceinline__ const T* mft_slab(const MftView& v, int c, int n) {
 // 16-byte aligned), as conv2's forward and fc1's backward write them; the
 // thread loads pairs 8 (t + 256 k) .. + 7 with three vector loads each,
 // issued together. Otherwise: any strides and types, one element at a time
-// when routed.
-template <bool kDense>
+// when routed; there, kPairs of the pairs, from channel co0 of load's on
+// (route's co counts from co0).
+template <bool kDense, int kPairs = kC2Wins>
 struct C2Windows;
 
 template <>
-struct C2Windows<true> {
+struct C2Windows<true, kC2Wins> {
   static constexpr int kSlots = 16;
   uint4 dp[2], h[2];
   uint2 q[2];
@@ -392,15 +334,16 @@ struct C2Windows<true> {
   }
 };
 
-template <>
-struct C2Windows<false> {
-  static constexpr int kSlots = (kC2Wins + kTcThreads - 1) / kTcThreads;
+template <int kPairs>
+struct C2Windows<false, kPairs> {
+  static constexpr int kSlots = (kPairs + kTcThreads - 1) / kTcThreads;
   const MftView *dp_, *h_, *arg_;
-  int c_, n_;
+  int c_, n_, co0_;
 
   __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
-                                       const MftView& varg, int c, int n) {
-    dp_ = &vdp, h_ = &vh, arg_ = &varg, c_ = c, n_ = n;
+                                       const MftView& varg, int c, int n,
+                                       int co0 = 0) {
+    dp_ = &vdp, h_ = &vh, arg_ = &varg, c_ = c, n_ = n, co0_ = co0;
   }
 
   static __device__ __forceinline__ int pair(int slot) {
@@ -411,13 +354,13 @@ struct C2Windows<false> {
   __device__ __forceinline__ void route(Route&& put) const {
     for (int slot = 0; slot < kSlots; ++slot) {
       const int i = pair(slot);
-      if (i < kC2Wins) {
-        const int co = i / kC2Pooled, p = i % kC2Pooled;
+      if (i < kPairs) {
+        const int co = co0_ + i / kC2Pooled, p = i % kC2Pooled;
         const int oi = p / kC2Pw, oj = p % kC2Pw;
         const float hv = mft_ld(*h_, mft_off(*h_, c_, n_, co, oi, oj));
         const float g =
             hv > 0.f ? mft_ld(*dp_, mft_off(*dp_, c_, n_, co, oi, oj)) : 0.f;
-        put(slot, co, p,
+        put(slot, i / kC2Pooled, p,
             static_cast<int>(mft_ld(*arg_, mft_off(*arg_, c_, n_, co, oi, oj))),
             g);
       }
@@ -649,25 +592,30 @@ __device__ __forceinline__ float mft_f4_at(const float4& v, int e) {
 // conv2's pooled gradient, pooled output and argmax of one sample in f32,
 // as C2Windows<true> stages them in bf16: dense NCHW slabs (dp, h f32; arg
 // bytes; 16-byte aligned), pairs 4 (t + 256 k) .. + 3 with three vector
-// loads each, issued together. Other strides and types: C2Windows<false>.
+// loads each, issued together; kPairs of the pairs (a multiple of 4), from
+// channel co0 of load's on, as C2Windows<false, kPairs> routes them. Other
+// strides and types: C2Windows<false, kPairs>.
+template <int kPairs>
 struct C2WindowsF32 {
-  static constexpr int kLoads = (kC2Wins / 4 + kTcThreads - 1) / kTcThreads;
+  static constexpr int kLoads = (kPairs / 4 + kTcThreads - 1) / kTcThreads;
   static constexpr int kSlots = 4 * kLoads;
   float4 dp[kLoads], h[kLoads];
   uint32_t q[kLoads];
 
   __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
-                                       const MftView& varg, int c, int n) {
+                                       const MftView& varg, int c, int n,
+                                       int co0 = 0) {
+    const int base = co0 * kC2Pooled;
 #pragma unroll
     for (int k = 0; k < kLoads; ++k) {
       const int i0 = 4 * (threadIdx.x + k * kTcThreads);
-      if (i0 < kC2Wins) {
+      if (i0 < kPairs) {
         dp[k] = *reinterpret_cast<const float4*>(mft_slab<float>(vdp, c, n) +
-                                                 i0);
+                                                 base + i0);
         h[k] = *reinterpret_cast<const float4*>(mft_slab<float>(vh, c, n) +
-                                                i0);
+                                                base + i0);
         q[k] = *reinterpret_cast<const uint32_t*>(
-            mft_slab<uint8_t>(varg, c, n) + i0);
+            mft_slab<uint8_t>(varg, c, n) + base + i0);
       }
     }
   }
@@ -681,7 +629,7 @@ struct C2WindowsF32 {
 #pragma unroll
     for (int slot = 0; slot < kSlots; ++slot) {
       const int i = pair(slot);
-      if (i < kC2Wins) {
+      if (i < kPairs) {
         const int k = slot / 4, e = slot % 4;
         const float g = mft_f4_at(h[k], e) > 0.f ? mft_f4_at(dp[k], e) : 0.f;
         put(slot, i / kC2Pooled, i % kC2Pooled,
@@ -765,7 +713,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 conv2_wgrad_tf32_kernel(MftView x, MftView dp, MftView h, MftView arg,
                         MftView gw, MftView gb, int batch) {
   using Windows =
-      typename std::conditional<kDenseZ, C2WindowsF32, C2Windows<false>>::type;
+      typename std::conditional<kDenseZ, C2WindowsF32<kC2Wins>,
+                                C2Windows<false>>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xh = reinterpret_cast<float*>(smem_raw);  // [ci][halo pixel]
   float* xl = xh + kC2In * kTfXRow;
@@ -875,6 +824,236 @@ conv2_wgrad_tf32_kernel(MftView x, MftView dp, MftView h, MftView arg,
     float s = 0.f;
     for (int p = 0; p < kC2Pooled; ++p) s += red[t * kC2Pooled + p];
     mft_st(gb, mft_off(gb, c, 0, t, 0, 0), s);
+  }
+}
+
+// --------------------------------------------- conv2's input gradient, f32
+//
+// conv2_dgrad_tf32: conv2_dgrad_tc's implicit GEMM in f32, on
+// mma.sync.m16n8k8 TF32 in 3xTF32 as conv2_wgrad_tf32 forms its products.
+// It replaces, in f32, the da of _kdot3d_bwd
+// (multimodal_fl_security_tpu/ops/fused_kernel.py:144-154), reached through
+// jax.grad at :433 inside fused_local_train (K4): dX[(y, x), ci] = sum over
+// (kh, kw, co) of dZ[(y + 1 - kh, x + 1 - kw), co] W[co, ci, kh, kw]; per
+// sample M = 196 (13 m16 tiles), N = 32, K = 576.
+//  - Both operands have k = co contiguous: A is the rows [halo pixel][co]
+//    of the zero-bordered dZ tile shifted by (kh, kw), B the weights staged
+//    [kh * 3 + kw][ci][co]. ldmatrix without .trans gives lane l word l % 4
+//    of row l / 4 of an 8 x 16-byte matrix: the TF32 fragment of a [row][k]
+//    tile for A and of an [n][k] tile for B. Every fragment comes from
+//    ldmatrix, and the shift by (kh, kw) moves whole 16-byte rows.
+//  - The budget: W's hi and lo (2 x 76.5 KB, rows padded to 68 words) and
+//    the dZ tile [16 x 16][64] as hi and lo (2 x 68 KB) are 289 KB, over
+//    the 227 KB a block may use. So the tile holds half the channels,
+//    [16 x 16][32] (2 x 36 KB), and a sample is two passes over K, co in
+//    [0, 32) and then [32, 64), its sums kept in registers between them; W
+//    stays resident for the block's kDgSamples samples. 225 KB: one block
+//    an SM. (Splitting ci across two blocks would route every window
+//    twice; splitting an operand into hi and lo as its fragments are read
+//    costs ~11 integer operations an element on every read.)
+//  - Each operand is split into hi = tf32(a) and lo = tf32(a - hi)
+//    (mft_tf32_rne) once, as it is staged; lo hi + hi lo + hi hi in f32
+//    sums. A fresh accumulator takes each (kh, kw) of a pass (4 k8 steps,
+//    12 mma an n8 tile) and is added to the sums in f32: the tensor cores'
+//    sums do not round to nearest.
+//  - Warp w: output rows 16 w and 16 (w + 8) + [0, 16) of the 208 (warps
+//    5..7 one tile), all 32 channels; the B fragments serve both tiles.
+//    While the tensor cores run one pass, the next pass's windows are
+//    loaded into registers. Every sum runs in a fixed order, with no
+//    atomics: two calls are bitwise equal.
+// What bounds it: the routed work (dZ is nonzero at one position of a
+// window) is ~5.8 GFLOP over 100 clients x 32 samples at the north star
+// (0.035 ms in 3xTF32, 0.086 at the f32 CUDA-core rate) against 178 MB of
+// operands (dp, h, the argmax, W, dX: 0.053 ms at 3.35 TB/s): bytes. The
+// dense GEMM the tensor cores run is 23.1 GFLOP, 69 GFLOP of TF32 mma in
+// 3xTF32 (0.14 ms at 495 TFLOP/s), and each k8 step of a two-tile warp
+// reads its fragments with 8 ldmatrix for 24 mma: shared memory and the
+// tensor cores bound the design.
+
+constexpr int kTfWRow = kC2Out + 4;   // 68 floats: [tap][ci][co] rows
+constexpr int kTfHalf = kC2Out / 2;   // 32 channels a pass
+constexpr int kTfHRow = kTfHalf + 4;  // 36 floats: [halo pixel][co] rows
+constexpr int kC2HalfWins = kC2Wins / 2;  // 1568 (co, window) pairs a pass
+constexpr size_t kTfDgradSmem =
+    sizeof(float) * 2 * (9 * kC2In * kTfWRow + kHaloPix * kTfHRow);
+
+static_assert(kTfDgradSmem <= kMftMaxSmem, "one block an SM");
+
+// One pass of conv2_dgrad_tf32 over K for a warp's kTiles m16 tiles: the
+// nine taps of the staged channel half, each tap's 4 k8 steps into a fresh
+// accumulator added to acc in f32. a_hi, a_lo: this lane's ldmatrix
+// addresses of dZ's pixel 0 (its column, 4 (li >> 1)); pix0: its rows'
+// pixels at tap (0, 0), -1 for a pad row (which reads the zero pixel 0);
+// b_hi, b_lo: its addresses in W's tap 0, co 0.
+template <int kTiles>
+__device__ __forceinline__ void c2_dgrad_pass(float (&acc)[2][4][4],
+                                              const int (&pix0)[2],
+                                              uint32_t a_hi, uint32_t a_lo,
+                                              uint32_t b_hi, uint32_t b_lo,
+                                              int half) {
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int shift = (tap / 3) * kHaloW + tap % 3;
+    uint32_t ah_row[kTiles], al_row[kTiles];
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      const int pix = pix0[j] >= 0 ? pix0[j] - shift : 0;
+      ah_row[j] = a_hi + pix * kTfHRow * sizeof(float);
+      al_row[j] = a_lo + pix * kTfHRow * sizeof(float);
+    }
+    const uint32_t b_tap =
+        (tap * kC2In * kTfWRow + half * kTfHalf) * sizeof(float);
+    float part[kTiles][4][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < kTfHalf / 8; ++kc) {
+      uint32_t ah[kTiles][4], al[kTiles][4];
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        ldsm4(ah[j], ah_row[j] + kc * 8 * sizeof(float));
+        ldsm4(al[j], al_row[j] + kc * 8 * sizeof(float));
+      }
+#pragma unroll
+      for (int ng = 0; ng < 2; ++ng) {
+        // ci 16 ng + [0, 16): b0, b1 of the n8 tile 2 ng, then 2 ng + 1.
+        const uint32_t off =
+            b_tap + (ng * 16 * kTfWRow + kc * 8) * sizeof(float);
+        uint32_t bh[4], bl[4];
+        ldsm4(bh, b_hi + off);
+        ldsm4(bl, b_lo + off);
+#pragma unroll
+        for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            float(&d)[4] = part[j][2 * ng + s];
+            mma1688_tf32(d, al[j], bh[2 * s], bh[2 * s + 1]);  // small first
+            mma1688_tf32(d, ah[j], bl[2 * s], bl[2 * s + 1]);
+            mma1688_tf32(d, ah[j], bh[2 * s], bh[2 * s + 1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][nt][e] += part[j][nt][e];
+      }
+    }
+  }
+}
+
+// One block per (kDgSamples samples, client). Dense dX: an NHWC f32 slab
+// [14][14][32], 16-byte aligned, written two channels (8 bytes) a store;
+// otherwise any strides and types, one element at a time.
+template <bool kDenseZ, bool kDenseX>
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv2_dgrad_tf32_kernel(MftView dp, MftView h, MftView arg, MftView w,
+                        MftView dx, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* wh = reinterpret_cast<float*>(smem_raw);  // [tap][ci][co]
+  float* wl = wh + 9 * kC2In * kTfWRow;
+  float* zh = wl + 9 * kC2In * kTfWRow;  // [halo pixel][co of the pass]
+  float* zl = zh + kHaloPix * kTfHRow;
+  const int c = blockIdx.y;
+  const int n0 = blockIdx.x * kDgSamples;
+  const int n1 = min(batch, n0 + kDgSamples);
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
+  const int gq = lane >> 2, tq = lane & 3;  // the accumulators' row, pair
+  // One channel half's windows at a time.
+  typename std::conditional<kDenseZ, C2WindowsF32<kC2HalfWins>,
+                            C2Windows<false, kC2HalfWins>>::type wr;
+  wr.load(dp, h, arg, c, n0, 0);
+  for (int i = t; i < 2 * kHaloPix * kTfHRow; i += kTcThreads) {
+    zh[i] = 0.f;  // the borders, of zh and zl
+  }
+  for (int i = t; i < 9 * kC2In * kC2Out; i += kTcThreads) {
+    const int kw = i % 3;  // w's own order: (co, ci, kh, kw), kw fastest
+    int r = i / 3;
+    const int kh = r % 3;
+    r /= 3;
+    const int ci = r % kC2In;
+    const int co = r / kC2In;
+    const float a = mft_ld(w, mft_off(w, c, co, ci, kh, kw));
+    const float hi = mft_tf32_rne(a);
+    const int at = ((kh * 3 + kw) * kC2In + ci) * kTfWRow + co;
+    wh[at] = hi;
+    wl[at] = mft_tf32_rne(a - hi);
+  }
+  // A (ldmatrix x4): matrix li is rows 8 (li & 1) + [0, 8) of a tile, k
+  // 4 (li >> 1) + [0, 4). This lane's row p of tile j sits at pixel
+  // (y + 2, x + 2) of the bordered tile at tap (0, 0).
+  const int tiles = warp + kTcWarps < kC2Rows / 16 ? 2 : 1;  // warp-uniform
+  int pix0[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int p = (warp + j * kTcWarps) * 16 + (li & 1) * 8 + lr;
+    pix0[j] = p < kC2Pos ? (p / kC2Hw + 2) * kHaloW + p % kC2Hw + 2 : -1;
+  }
+  const uint32_t a_col = (li >> 1) * 4 * sizeof(float);
+  const uint32_t a_hi = mft_smem_addr(zh) + a_col;
+  const uint32_t a_lo = mft_smem_addr(zl) + a_col;
+  // B (ldmatrix x4): matrix li is ci 8 (li >> 1) + [0, 8), k 4 (li & 1)
+  // + [0, 4).
+  const uint32_t b_row =
+      (((li >> 1) * 8 + lr) * kTfWRow + (li & 1) * 4) * sizeof(float);
+  const uint32_t b_hi = mft_smem_addr(wh) + b_row;
+  const uint32_t b_lo = mft_smem_addr(wl) + b_row;
+  for (int n = n0; n < n1; ++n) {
+    float acc[2][4][4] = {};
+    for (int half = 0; half < 2; ++half) {
+      __syncthreads();  // W and the borders staged, or the last pass read
+      // Window (co, p): its four positions, the argmax's holding g.
+      wr.route([&](int, int col, int p, int q, float g) {
+        const float gh = mft_tf32_rne(g), gl = mft_tf32_rne(g - gh);
+        const int at =
+            ((2 * (p / kC2Pw) + 1) * kHaloW + 2 * (p % kC2Pw) + 1) * kTfHRow +
+            col;
+        const int pos[4] = {0, kTfHRow, kHaloW * kTfHRow,
+                            (kHaloW + 1) * kTfHRow};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          zh[at + pos[k]] = q == k ? gh : 0.f;
+          zl[at + pos[k]] = q == k ? gl : 0.f;
+        }
+      });
+      __syncthreads();
+      if (half == 0) {
+        wr.load(dp, h, arg, c, n, kTfHalf);
+      } else if (n + 1 < n1) {
+        wr.load(dp, h, arg, c, n + 1, 0);
+      }
+      if (tiles == 2) {
+        c2_dgrad_pass<2>(acc, pix0, a_hi, a_lo, b_hi, b_lo, half);
+      } else {
+        c2_dgrad_pass<1>(acc, pix0, a_hi, a_lo, b_hi, b_lo, half);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= tiles) break;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int eh = 0; eh < 2; ++eh) {
+          const int row = (warp + j * kTcWarps) * 16 + gq + eh * 8;
+          const int ci = nt * 8 + 2 * tq;
+          if (row >= kC2Pos) continue;
+          const float v0 = acc[j][nt][2 * eh], v1 = acc[j][nt][2 * eh + 1];
+          if (kDenseX) {
+            float* out = static_cast<float*>(dx.ptr) + c * dx.st[0] +
+                         n * dx.st[1] + row * kC2In + ci;
+            *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+          } else {
+            const int y = row / kC2Hw, x = row % kC2Hw;
+            mft_st(dx, mft_off(dx, c, n, ci, y, x), v0);
+            mft_st(dx, mft_off(dx, c, n, ci + 1, y, x), v1);
+          }
+        }
+      }
+    }
   }
 }
 
@@ -1718,10 +1897,10 @@ cudaError_t launch_stem_fwd(const MftView* x, const MftView* w,
              : launch_stem_fwd<80, kDenseOut>(x, w, b, out, arg, a, st);
 }
 
-// What conv2_wgrad_tf32 takes: f32 compute, a pooled 3 x 3 SAME
-// convolution at stride 1 with conv2's shape; operands of any strides and
-// types.
-bool wgrad_tf32_takes(const ConvGeom& g) {
+// What conv2_wgrad_tf32 and conv2_dgrad_tf32 take: f32 compute, a pooled
+// 3 x 3 SAME convolution at stride 1 with conv2's shape; operands of any
+// strides and types.
+bool conv2_tf32_takes(const ConvGeom& g) {
   return g.cdt == kF32 && g.k == 3 && g.stride == 1 && g.pad == 1 && g.pool &&
          g.cin == kC2In && g.cout == kC2Out && g.h == kC2Hw &&
          g.w == kC2Hw && g.oh == kC2Hw && g.ow == kC2Hw;
@@ -1785,34 +1964,11 @@ int mft_conv_wgrad(const MftView* x, const MftView* dp, const MftView* h,
   return cudaGetLastError();
 }
 
-// Input gradient of a pooled stride-1 conv layer: dx (client, sample, ci,
-// row, col) from dp, h and arg as above and the weights w.
-int mft_conv_dgrad(const MftView* dp, const MftView* h, const MftView* arg,
-                   const MftView* w, const MftView* dx, const MftConvArgs* a,
-                   int device, void* stream) {
-  const ConvGeom& g = a->g;
-  if (a->clients <= 0 || g.batch <= 0 || !g.pool || g.stride != 1 ||
-      g.oh % 2 || g.ow % 2) {
-    return cudaErrorInvalidValue;
-  }
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(g.k) * g.k * g.cin * g.cout +
-       static_cast<size_t>(g.oh) * g.ow * g.cout);
-  if (smem > kMftMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = mft_smem_optin(conv_dgrad_kernel, smem);
-  if (err != cudaSuccess) return err;
-  conv_dgrad_kernel<<<dim3(g.batch, a->clients), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(*dp, *h, *arg, *w,
-                                                           *dx, g);
-  return cudaGetLastError();
-}
-
-// The tensor-core kernels for the compute dtype bf16: the same arguments as
-// mft_conv_wgrad and mft_conv_dgrad. What they do not take (mft_conv_tc_kind
-// 0, with x null for the input gradient) is refused, never handed to another
-// kernel.
+// The tensor-core kernels for the compute dtype bf16: the weight gradient
+// takes mft_conv_wgrad's arguments; the input gradient writes dx (client,
+// sample, ci, row, col) from dp, h and arg as mft_conv_wgrad reads them and
+// the weights w. What they do not take (mft_conv_tc_kind 0, with x null for
+// the input gradient) is refused, never handed to another kernel.
 int mft_conv_tc_kind(const MftConvArgs* a, const MftView* dp,
                      const MftView* x) {
   return tc_kind(a->g, *dp, x);
@@ -1868,7 +2024,7 @@ int mft_conv_dgrad_tc(const MftView* dp, const MftView* h, const MftView* arg,
 // arguments as mft_conv_wgrad. What mft_conv2_wgrad_tf32_takes refuses is
 // refused, never handed to another kernel.
 int mft_conv2_wgrad_tf32_takes(const MftConvArgs* a) {
-  return wgrad_tf32_takes(a->g);
+  return conv2_tf32_takes(a->g);
 }
 
 int mft_conv2_wgrad_tf32(const MftView* x, const MftView* dp,
@@ -1876,7 +2032,7 @@ int mft_conv2_wgrad_tf32(const MftView* x, const MftView* dp,
                          const MftView* gw, const MftView* gb,
                          const MftConvArgs* a, int device, void* stream) {
   const ConvGeom& g = a->g;
-  if (a->clients <= 0 || g.batch <= 0 || !wgrad_tf32_takes(g)) {
+  if (a->clients <= 0 || g.batch <= 0 || !conv2_tf32_takes(g)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -1893,6 +2049,38 @@ int mft_conv2_wgrad_tf32(const MftView* x, const MftView* dp,
   return launch_tc(kernel, dim3(3, a->clients), kTfWgradSmem,
                    static_cast<cudaStream_t>(stream), g.batch, x, dp, h, arg,
                    gw, gb);
+}
+
+// conv2's input gradient for the compute dtype f32, in 3xTF32: the same
+// arguments as mft_conv_dgrad_tc. What mft_conv2_dgrad_tf32_takes refuses is
+// refused, never handed to another kernel.
+int mft_conv2_dgrad_tf32_takes(const MftConvArgs* a) {
+  return conv2_tf32_takes(a->g);
+}
+
+int mft_conv2_dgrad_tf32(const MftView* dp, const MftView* h,
+                         const MftView* arg, const MftView* w,
+                         const MftView* dx, const MftConvArgs* a, int device,
+                         void* stream) {
+  const ConvGeom& g = a->g;
+  if (a->clients <= 0 || g.batch <= 0 || !conv2_tf32_takes(g)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  // The main path's layouts: the maps NCHW, f32, and dX NHWC.
+  const bool dz = dense_slab(*dp, kF32, kC2Pooled, kC2Pw, 1) &&
+                  dense_slab(*h, kF32, kC2Pooled, kC2Pw, 1) &&
+                  dense_slab(*arg, kU8, kC2Pooled, kC2Pw, 1);
+  const bool dout = dense_slab(*dx, kF32, 1, kC2Hw * kC2In, kC2In);
+  const auto kernel = dz ? (dout ? conv2_dgrad_tf32_kernel<true, true>
+                                 : conv2_dgrad_tf32_kernel<true, false>)
+                         : (dout ? conv2_dgrad_tf32_kernel<false, true>
+                                 : conv2_dgrad_tf32_kernel<false, false>);
+  const dim3 grid((g.batch + kDgSamples - 1) / kDgSamples, a->clients);
+  return launch_tc(kernel, grid, kTfDgradSmem,
+                   static_cast<cudaStream_t>(stream), g.batch, dp, h, arg, w,
+                   dx);
 }
 
 // The forward's tensor-core kernels, for the compute dtype bf16: the same

@@ -12,7 +12,15 @@
 //    i-pair max of sublane_pool_reshape, the lane max of the pools) and its
 //    backward, which splits a tie's gradient equally between the two sides,
 //    as JAX's `maximum` and `reduce_max` VJPs do (`torch.max(dim)` would
-//    give it all to one side).
+//    give it all to one side). The maximum is JAX's, bit for bit: a NaN
+//    operand is the result (the first if both are), and +0 is above -0.
+//    max2 takes f32 only, with 32-bit index arithmetic, on two
+//    routes the wrapper chooses before the launch: rows of float4 where the
+//    last axis has stride 1 and every row starts 16-byte aligned (the
+//    probe's halves, 4 KB apart), one element a thread otherwise. Its
+//    launch arguments come packed in one buffer of integers
+//    (mft_max2_packed), and the device is made current only when it is
+//    not: the wrapper's host work, not the device, bounds a call.
 //  - relu_mask / relu_mask_bwd: relu(x) times an iota predicate on one axis
 //    (lo <= i % mod < hi), and its backward g * (x > 0) * predicate.
 //  - block_fold: out[i, j] = sum_b x[b * brow + i, b * bcol + j], added in b
@@ -127,14 +135,63 @@ masked_ce_kernel(MftView z, MftView labels, MftView onehot, MftView rowgrad,
   }
 }
 
+// max2's index space: five extents (the last fastest) and the two
+// operands' strides, in elements; the output is dense.
+struct Max2Dims {
+  int n[5], sa[5], sb[5];
+};
+
+// JAX's maximum: a NaN operand wins, the first if both are; of two equal
+// values the one without the sign bit (+0 above -0).
+__device__ __forceinline__ float max2_of(float x, float y) {
+  const bool take_x =
+      x != x ||
+      (y == y && (x > y || (x == y && !(__float_as_uint(x) >> 31))));
+  return take_x ? x : y;
+}
+
+// Offsets in a and b of element r * n4 + j, row r over the leading axes.
+__device__ __forceinline__ void max2_offsets(const Max2Dims& d, int r, int j,
+                                             int& oa, int& ob) {
+  oa = j * d.sa[4];
+  ob = j * d.sb[4];
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    const int i = r % d.n[k];
+    r /= d.n[k];
+    oa += i * d.sa[k];
+    ob += i * d.sb[k];
+  }
+}
+
+// The rows route: the last axis at stride 1 with an extent that is a
+// multiple of 4, every row 16-byte aligned in a and b; a float4 a thread.
 __global__ void __launch_bounds__(kThreads)
-max2_kernel(MftView a, MftView b, MftView out, Dims5 d) {
-  MFT_GRID_STRIDE(e, total5(d)) {
-    long long i[5];
-    split5(e, d, i);
-    const float x = mft_ld(a, off5(a, i));
-    const float y = mft_ld(b, off5(b, i));
-    mft_st(out, off5(out, i), x >= y ? x : y);
+max2_rows_kernel(const float* a, const float* b, float4* out, Max2Dims d,
+                 int total4) {
+  const int q = d.n[4] / 4;  // float4s a row
+  for (int u = blockIdx.x * kThreads + threadIdx.x; u < total4;
+       u += gridDim.x * kThreads) {
+    const int r = u / q;
+    int oa, ob;
+    max2_offsets(d, r, 4 * (u - r * q), oa, ob);
+    const float4 x = *reinterpret_cast<const float4*>(a + oa);
+    const float4 y = *reinterpret_cast<const float4*>(b + ob);
+    out[u] = make_float4(max2_of(x.x, y.x), max2_of(x.y, y.y),
+                         max2_of(x.z, y.z), max2_of(x.w, y.w));
+  }
+}
+
+// Any strides: one element a thread.
+__global__ void __launch_bounds__(kThreads)
+max2_any_kernel(const float* a, const float* b, float* out, Max2Dims d,
+                int total) {
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += gridDim.x * kThreads) {
+    const int r = e / d.n[4];
+    int oa, ob;
+    max2_offsets(d, r, e - r * d.n[4], oa, ob);
+    out[e] = max2_of(a[oa], b[ob]);
   }
 }
 
@@ -250,12 +307,51 @@ int mft_masked_ce(const MftView* z, const MftView* labels,
   return cudaGetLastError();
 }
 
-int mft_max2(const MftView* a, const MftView* b, const MftView* out,
-             const Dims5* d, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// max2 from one packed buffer p: the addresses of a, b and the dense f32
+// output, the five extents, a's five strides and b's (elements); rows = 1
+// takes the rows route. A call whose extents or offsets pass 32 bits, or
+// that the route does not take, is refused.
+int mft_max2_packed(const long long* p, int rows, int device, void* stream) {
+  int current;
+  cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return err;
-  max2_kernel<<<blocks_for(total5(*d)), kThreads, 0, as_stream(stream)>>>(
-      *a, *b, *out, *d);
+  if (current != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+  }
+  const float* a = reinterpret_cast<const float*>(p[0]);
+  const float* b = reinterpret_cast<const float*>(p[1]);
+  Max2Dims d;
+  long long total = 1, last_a = 0, last_b = 0;  // the last elements' offsets
+  for (int k = 0; k < 5; ++k) {
+    if (p[3 + k] <= 0 || p[8 + k] < 0 || p[13 + k] < 0) {
+      return cudaErrorInvalidValue;
+    }
+    d.n[k] = static_cast<int>(p[3 + k]);
+    d.sa[k] = static_cast<int>(p[8 + k]);
+    d.sb[k] = static_cast<int>(p[13 + k]);
+    total *= p[3 + k];
+    last_a += (p[3 + k] - 1) * p[8 + k];
+    last_b += (p[3 + k] - 1) * p[13 + k];
+  }
+  constexpr long long kMax = 0x7fffffffLL;
+  if (total > kMax || last_a > kMax || last_b > kMax) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = static_cast<int>(total);
+  if (rows) {
+    bool takes = d.sa[4] == 1 && d.sb[4] == 1 && d.n[4] % 4 == 0 &&
+                 (p[0] | p[1] | p[2]) % 16 == 0;
+    for (int k = 0; k < 4; ++k) {
+      takes = takes && d.sa[k] % 4 == 0 && d.sb[k] % 4 == 0;
+    }
+    if (!takes) return cudaErrorInvalidValue;
+    max2_rows_kernel<<<blocks_for(n / 4), kThreads, 0, as_stream(stream)>>>(
+        a, b, reinterpret_cast<float4*>(p[2]), d, n / 4);
+  } else {
+    max2_any_kernel<<<blocks_for(n), kThreads, 0, as_stream(stream)>>>(
+        a, b, reinterpret_cast<float*>(p[2]), d, n);
+  }
   return cudaGetLastError();
 }
 

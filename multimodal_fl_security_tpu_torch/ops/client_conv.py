@@ -74,9 +74,10 @@ def _library() -> ctypes.CDLL:
     p = ctypes.POINTER(MftView)
     args = ctypes.POINTER(ConvArgs)
     for name, n_views in (("mft_conv_fwd", 5), ("mft_conv_wgrad", 6),
-                          ("mft_conv_dgrad", 5), ("mft_conv_fwd_tc", 5),
+                          ("mft_conv_fwd_tc", 5),
                           ("mft_conv_wgrad_tc", 6), ("mft_conv_dgrad_tc", 5),
-                          ("mft_conv2_wgrad_tf32", 6)):
+                          ("mft_conv2_wgrad_tf32", 6),
+                          ("mft_conv2_dgrad_tf32", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_views + [args, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -84,8 +85,10 @@ def _library() -> ctypes.CDLL:
     lib.mft_conv_tc_kind.restype = ctypes.c_int
     lib.mft_conv_fwd_tc_kind.argtypes = [args, p]
     lib.mft_conv_fwd_tc_kind.restype = ctypes.c_int
-    lib.mft_conv2_wgrad_tf32_takes.argtypes = [args]
-    lib.mft_conv2_wgrad_tf32_takes.restype = ctypes.c_int
+    for takes in (lib.mft_conv2_wgrad_tf32_takes,
+                  lib.mft_conv2_dgrad_tf32_takes):
+        takes.argtypes = [args]
+        takes.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -283,23 +286,32 @@ def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
 
 def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
                 x: Optional[MftView], wrapper: str) -> str:
-    """The kernel that serves ``a``'s compute dtype. For f32 the CUDA-core
-    one, but conv2's weight gradient (a pooled 3x3 SAME stride-1 geometry
-    with conv2's shape, operands of any strides), ``conv2_wgrad_tf32`` in
-    3xTF32 on the tensor cores: a route chosen here, before the launch. For
-    bf16 the tensor-core one, which takes a pooled 3x3 SAME
-    stride-1 geometry with conv2's shape (32 -> 64 channels at 14x14) or,
-    for the weight gradient only (``x`` the input's view, None for the input
-    gradient), a stem's (1-8 -> 32 channels, its input in f32), and ``dp``
-    (its view) in bf16. Any other bf16 call raises: it never drops to the
-    CUDA-core kernel. The kernels read the main path's layouts (conv2's
-    maps NCHW and its input NHWC, the stem's maps NHWC) with vector loads,
-    any other strides one element at a time."""
+    """The kernel that serves ``a``'s compute dtype. For f32 conv2's
+    gradients (a pooled 3x3 SAME stride-1 geometry with conv2's shape,
+    operands of any strides) run ``conv2_wgrad_tf32`` and
+    ``conv2_dgrad_tf32`` in 3xTF32 on the tensor cores, a route chosen
+    here, before the launch; any other weight gradient (the stem's) runs
+    the CUDA-core ``conv_wgrad``, and any other input gradient raises. For
+    bf16 the tensor-core one, which takes a
+    pooled 3x3 SAME stride-1 geometry with conv2's shape (32 -> 64 channels
+    at 14x14) or, for the weight gradient only (``x`` the input's view,
+    None for the input gradient), a stem's (1-8 -> 32 channels, its input
+    in f32), and ``dp`` (its view) in bf16. Any other bf16 call raises: it
+    never drops to the CUDA-core kernel. The kernels read the main path's
+    layouts (conv2's maps NCHW and its input NHWC, the stem's maps NHWC)
+    with vector loads, any other strides one element at a time."""
     if a.g.cdt == DTYPE_CODES[torch.float32]:
-        if wrapper == "conv_wgrad" and lib.mft_conv2_wgrad_tf32_takes(
-                ctypes.byref(a)):
-            return "conv2_wgrad_tf32"
-        return wrapper
+        tf32 = {"conv_wgrad": "conv2_wgrad_tf32",
+                "conv_dgrad": "conv2_dgrad_tf32"}[wrapper]
+        if getattr(lib, f"mft_{tf32}_takes")(ctypes.byref(a)):
+            return tf32
+        if wrapper == "conv_wgrad":
+            return wrapper
+        g = a.g
+        raise ValueError(
+            f"conv_dgrad in f32 runs conv2_dgrad_tf32, which takes a pooled "
+            f"3x3 SAME stride-1 conv2 (32 -> 64 at 14x14); got {g.cin} -> "
+            f"{g.cout} at {g.h}x{g.w}, k {g.k}, pad {g.pad}")
     kind = lib.mft_conv_tc_kind(ctypes.byref(a), ctypes.byref(dp),
                                 None if x is None else ctypes.byref(x))
     if kind == _TC_NONE:
@@ -397,9 +409,11 @@ def conv_dgrad(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
                dtype: torch.dtype = torch.float32,
                channels_last: bool = False) -> torch.Tensor:
     """Input gradient [C, B, C_in, H, W] (in ``dtype``) of a pooled
-    stride-1 conv layer with weights ``w``. f32 runs the CUDA-core kernel,
-    bf16 the tensor-core one (conv2's shape only); ``conv_dgrad.launches``
-    counts the launches of both, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    stride-1 conv layer with weights ``w``, conv2's shape only on the card:
+    f32 runs ``conv2_dgrad_tf32`` (3xTF32), bf16 ``conv_dgrad_tc`` (see
+    :func:`_kernel_for`); ``conv_dgrad.launches`` counts the launches of
+    both,
+    :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if dp.device.type == "cpu":
         return conv_dgrad_plain(dp, h, arg, w, in_hw, pad=pad, dtype=dtype,
                                 channels_last=channels_last)

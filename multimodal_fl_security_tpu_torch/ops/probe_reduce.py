@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -46,13 +47,13 @@ def _library() -> ctypes.CDLL:
     d = ctypes.POINTER(_Dims5)
     i, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.mft_masked_ce.argtypes = [p] * 4 + [ptr, p, i, i, i, i, ptr]
-    lib.mft_max2.argtypes = [p] * 3 + [d, i, ptr]
+    lib.mft_max2_packed.argtypes = [ctypes.c_char_p, i, i, ptr]
     lib.mft_max2_bwd.argtypes = [p] * 5 + [d, i, ptr]
     lib.mft_relu_mask.argtypes = [p] * 3 + [d, i, i64, i64, i64, i, i, ptr]
     lib.mft_block_fold.argtypes = [p] * 2 + [i] * 6 + [ptr]
     lib.mft_carry_sum.argtypes = [p] * 2 + [i] * 4 + [ptr]
     lib.mft_scalar_accum.argtypes = [p, ptr] + [i] * 3 + [ptr]
-    for fn in (lib.mft_masked_ce, lib.mft_max2, lib.mft_max2_bwd,
+    for fn in (lib.mft_masked_ce, lib.mft_max2_packed, lib.mft_max2_bwd,
                lib.mft_relu_mask, lib.mft_block_fold, lib.mft_carry_sum,
                lib.mft_scalar_accum):
         fn.restype = i
@@ -155,24 +156,77 @@ masked_ce.launches = 0
 # ------------------------------------------------------------ maximum of two
 
 def max2_plain(a, b):
-    """Plain version of :func:`max2`."""
-    return torch.maximum(a, b)
+    """Plain version of :func:`max2`: JAX's ``maximum`` (and ``jnp.max``
+    over the probe's pair axis), bit for bit on every device: a NaN operand
+    wins, the first if both are, and of two equal values the one without
+    the sign bit (+0 above -0). ``torch.maximum`` on the CPU differs in
+    both (an all-ones NaN, and b of a tie)."""
+    take_a = torch.isnan(a) | (~torch.isnan(b) & (
+        (a > b) | ((a == b) & ~torch.signbit(a))))
+    return torch.where(take_a, a, b)
+
+
+#: max2's packed launch arguments, 18 int64: three addresses, five
+#: extents, and the two operands' five strides each
+_MAX2_ARGS = struct.Struct("18q")
+#: leading extents (1) and strides (0) that pad a shape to five axes
+_PAD5 = {nd: ((1,) * (5 - nd), (0,) * (5 - nd)) for nd in range(1, 6)}
+
+
+def max2_launch_args(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor
+                     ) -> Tuple[int, tuple]:
+    """(route, packed arguments) of :func:`max2`'s launch on same-shape
+    ``a``, ``b`` and the dense ``out``: the addresses of the three, the
+    shape's extents with leading 1s to five axes, and ``a``'s and ``b``'s
+    strides in elements (0 on the leading axes). Route 1, rows of float4,
+    where the last axis has stride 1 and an extent that is a multiple of 4
+    and every row starts 16-byte aligned in ``a`` and ``b``; route 0, one
+    element a thread, otherwise. (The kernel refuses extents and offsets
+    past 32 bits.)"""
+    shape = a.shape
+    if not 1 <= len(shape) <= 5:
+        raise ValueError(f"need 1 to 5 axes, got {tuple(shape)}")
+    ones, zeros = _PAD5[len(shape)]
+    sa, sb = a.stride(), b.stride()
+    pa, pb, po = a.data_ptr(), b.data_ptr(), out.data_ptr()
+    lead = 0  # the row strides, or-ed: a multiple of 4 iff each one is
+    for s in sa[:-1] + sb[:-1]:
+        lead |= s
+    rows = sa[-1] == 1 and sb[-1] == 1 and not shape[-1] % 4 and \
+        not (pa | pb | po) % 16 and not lead % 4
+    return int(rows), (pa, pb, po, *ones, *shape, *zeros, *sa, *zeros, *sb)
+
+
+@functools.cache
+def _max2_entry():
+    return _library().mft_max2_packed
 
 
 def max2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise maximum of two same-shape views (up to 5 axes): a new
-    contiguous f32 tensor. ``max2.launches`` counts kernel launches."""
+    """Elementwise maximum of two same-shape views (up to 5 axes), as
+    JAX's ``maximum`` takes it (see :func:`max2_plain`): a new contiguous
+    f32 tensor. The route is chosen before the launch (see
+    :func:`max2_launch_args`). ``max2.launches`` counts kernel launches."""
     if a.shape != b.shape:
         raise ValueError(f"shapes differ: {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"max2 takes f32, got {a.dtype} and {b.dtype}")
     if a.device.type == "cpu":
         return max2_plain(a, b)
-    _f32(a, b)
-    device = require_cuda(a, b)
-    dims, axes = _space(a.shape)
-    out = torch.empty(a.shape, dtype=torch.float32, device=device)
-    views = [view(a, axes), view(b, axes), view(out, axes)]
-    _launch("max2", *[ctypes.byref(v) for v in views],
-            ctypes.byref(dims), device.index, stream_of(a))
+    device = a.get_device()
+    if b.get_device() != device:
+        raise ValueError(f"the kernel needs both operands on one CUDA "
+                         f"device, got {a.device} and {b.device}")
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    rows, args = max2_launch_args(a, b, out)
+    # The current stream's raw handle, without building a Stream object.
+    err = _max2_entry()(_MAX2_ARGS.pack(*args), rows, device,
+                        torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        check(_library(), err, f"max2 (route {rows}, shape {tuple(a.shape)}, "
+              f"strides {a.stride()} and {b.stride()})", "probe_reduce")
     max2.launches += 1
     return out
 

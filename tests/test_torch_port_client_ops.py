@@ -709,10 +709,11 @@ def dense_case(gen, c, rows, k, f, dtype, ints=False):
 
 @pytest.mark.cuda
 def test_kernel_choice_follows_the_dtype(cuda):
-    """f32 launches the CUDA-core kernels but for conv2's weight gradient
-    (conv2_wgrad_tf32, 3xTF32), bf16 the tensor-core ones; the raw mode,
-    K3, runs stem_raw_tf32 in f32 and stem_raw_tc in bf16. Each kernel has
-    its own count, the wrappers count all of theirs."""
+    """f32 launches the CUDA-core kernels but for conv2's weight and input
+    gradients (conv2_wgrad_tf32, conv2_dgrad_tf32: 3xTF32), bf16 the
+    tensor-core ones; the raw mode, K3, runs stem_raw_tf32 in f32 and
+    stem_raw_tc in bf16. Each kernel has its own count, the wrappers count
+    all of theirs."""
     counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         for layer, cin in TC_CASES:
@@ -761,7 +762,7 @@ def test_kernel_choice_follows_the_dtype(cuda):
             wgrad32 = "conv2_wgrad_tf32" if layer == "conv2" else \
                 "conv_wgrad"
             want = {**zero, wgrad32: int(not tc), "conv_wgrad_tc": int(tc),
-                    "conv_dgrad": dgrad * int(not tc),
+                    "conv2_dgrad_tf32": dgrad * int(not tc),
                     "conv_dgrad_tc": dgrad * int(tc)}
             want["conv_fwd" if not tc else fwd_tc] = 1
             assert counts[dtype, layer, cin] == want, (dtype, layer, cin)
