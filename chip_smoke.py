@@ -15,7 +15,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
    the bf16 forward, the conv gradients and fc1's forward and backward, and
    the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
-   ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32``).
+   ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
+   ``dense_bwd_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
@@ -48,8 +49,9 @@ paths and fails loudly on anything wrong. Phases, in order:
    activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
    and backward; CE; SGD at [100, 421,642]), in f32 with TF32 off (max
    |kernel - plain| <= 1e-5 * max|plain|; conv2's weight and input
-   gradients, on ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32``, are held
-   at that tolerance to the exact (f64) gradients instead, their errors
+   gradients and fc1's forward and backward, on ``conv2_wgrad_tf32``,
+   ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and ``dense_bwd_tf32``, are
+   held at that tolerance to the exact (f64) results instead, their errors
    there to at most 4x the f32 plain versions', and their distances from
    the plain versions printed) and in
    bf16 (<= 1e-2 * max|plain|, one rounding apart; the forward convs, fc1's
@@ -61,17 +63,18 @@ paths and fails loudly on anything wrong. Phases, in order:
    of it, the median kept, the spread printed): conv2's forward and
    gradient kernels in both dtypes, the stem's weight gradient in f32
    (``conv_wgrad``, in the row ``conv_wgrad_stem``), the stem's forward
-   and fc1's forward and backward also in f32 (rows ``conv_fwd_stem``,
-   ``dense_fwd_fc1``, ``dense_bwd_fc1``), fc2's forward in the bf16 path's
-   kernel, the rest in bf16, the stem's bf16 weight gradient
+   also in f32 (row ``conv_fwd_stem``), fc1's f32 forward and backward
+   (``dense_fwd_tf32``, ``dense_bwd_tf32``), fc2's forward and backward in
+   the bf16 path's kernels, the rest in bf16, the stem's bf16 weight gradient
    with its library call and bound; f32 bounds count operations at the
    3xTF32 rate and print the f32 CUDA-core figure beside them;
-   fc1's backward beside the two ``torch.bmm`` and the sum that compute
-   the same outputs (a reference, not a single library call);
+   fc1's and fc2's backward beside the two ``torch.bmm`` and the sum that
+   compute the same outputs (a reference, not a single library call);
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
    ``mirror_local_train`` within 1e-4 at f32; per step 1 ``conv_wgrad``,
-   the stem's, 1 ``conv2_wgrad_tf32`` and 1 ``conv2_dgrad_tf32``, every
-   other conv and dense launch on the CUDA-core kernels); (c)
+   the stem's, 1 each of ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``,
+   ``dense_fwd_tf32`` and ``dense_bwd_tf32``, the convs' forward and fc2
+   on the CUDA-core kernels); (c)
    ``run_bench()`` at full width in
    bf16:
    finite parameters, 12 launches per step x 38 steps, by kernel 38 each
@@ -81,7 +84,9 @@ paths and fails loudly on anything wrong. Phases, in order:
    bitwise equal, FedAvg test accuracy > 0.5; prints the kernel path's,
    the mirror's and the engine trainer's ms per call; then one f32
    ``fused_local_train`` call on the same clients
-   (``fused_kernel_bench.time_call``), timed with its launches by kernel;
+   (``fused_kernel_bench.time_call``), timed with its launches by kernel
+   (38 each of ``dense_fwd_tf32``, ``dense_bwd_tf32``, and of ``dense_fwd``
+   and ``dense_bwd`` for fc2);
    (d) K3, the raw stem conv, at [100, 32, 28*28*8] x [100, 4, 4, 8, 128],
    in each dtype: its path (one ``client_stem_conv`` call, counted: one
    ``stem_raw_tc`` launch in bf16, one ``stem_raw_tf32`` in f32), held to
@@ -232,12 +237,15 @@ TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
               "stem_wgrad_tc_kernel",
               "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
               "dense_bwd_tc_kernel", "stem_raw_tf32_kernel",
-              "conv2_wgrad_tf32_kernel", "conv2_dgrad_tf32_kernel")
+              "conv2_wgrad_tf32_kernel", "conv2_dgrad_tf32_kernel",
+              "dense_fwd_tf32_kernel", "dense_bwd_tf32_kernel")
 #: the instruction phase 2 requires in a 3xTF32 kernel's SASS: HGMMA for
 #: wgmma, HMMA for mma.sync
 TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
             "conv2_wgrad_tf32_kernel": "HMMA",
-            "conv2_dgrad_tf32_kernel": "HMMA"}
+            "conv2_dgrad_tf32_kernel": "HMMA",
+            "dense_fwd_tf32_kernel": "HMMA",
+            "dense_bwd_tf32_kernel": "HMMA"}
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
 DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
 
@@ -963,11 +971,19 @@ def phase_fused_kernels() -> dict:
         f3 = h3.view(c, 32, -1)
         h4 = cd.dense_fwd(f3, v["fc1.weight"], v["fc1.bias"], relu=True,
                           wdtype=dt, out_dtype=dt)
-        errs["dense_fwd", dt] = held("fc1 fwd [100, 32, 3136]", h4,
-                                     cd.dense_fwd_plain(
-                                         f3, v["fc1.weight"], v["fc1.bias"],
-                                         relu=True, wdtype=dt, out_dtype=dt),
-                                     dt)
+        plain_h4 = cd.dense_fwd_plain(f3, v["fc1.weight"], v["fc1.bias"],
+                                      relu=True, wdtype=dt, out_dtype=dt)
+        if dt == f32:
+            w1d, f3d = v["fc1.weight"].double(), f3.double()
+            # dense_fwd_tf32's and dense_bwd_tf32's 3xTF32 sums keep f32's
+            # accuracy: held to the exact (f64) results, as conv2's.
+            errs["dense_fwd", dt], errs["dense_fwd_vs_plain", dt] = held_f64(
+                "fc1 fwd [100, 32, 3136]", h4, torch.relu(torch.baddbmm(
+                    v["fc1.bias"].double().unsqueeze(1), f3d,
+                    w1d.transpose(1, 2))), plain_h4)
+        else:
+            errs["dense_fwd", dt] = held("fc1 fwd [100, 32, 3136]", h4,
+                                         plain_h4, dt)
         logits = cd.dense_fwd(h4, v["fc2.weight"], v["fc2.bias"], wdtype=f32,
                               out_dtype=f32)
         errs["fc2", dt] = held("fc2 fwd [100, 32, 128]", logits,
@@ -987,11 +1003,21 @@ def phase_fused_kernels() -> dict:
         dz4 = k2[2]
         k1 = bwd(cd.dense_bwd, dz4, f3, v["fc1.weight"], v["fc1.bias"], None,
                  dt, dt, dt)
-        for name, got, ref in zip(("dW", "db", "dx"), k1, bwd(
-                cd.dense_bwd_plain, dz4, f3, v["fc1.weight"], v["fc1.bias"],
-                None, dt, dt, dt)):
-            errs["dense_bwd", dt, name] = held(f"fc1 bwd {name}", got, ref,
-                                               dt)
+        p1 = bwd(cd.dense_bwd_plain, dz4, f3, v["fc1.weight"], v["fc1.bias"],
+                 None, dt, dt, dt)
+        if dt == f32:
+            dz4d = dz4.double()
+            exact = (torch.bmm(dz4d.transpose(1, 2), f3d), dz4d.sum(dim=1),
+                     torch.bmm(dz4d, w1d))
+            for name, got, ref, pl in zip(("dW", "db", "dx"), k1, exact, p1):
+                errs["dense_bwd", dt, name], \
+                    errs["dense_bwd_vs_plain", dt, name] = held_f64(
+                        f"fc1 bwd {name}", got, ref, pl)
+            del exact, w1d, f3d
+        else:
+            for name, got, ref in zip(("dW", "db", "dx"), k1, p1):
+                errs["dense_bwd", dt, name] = held(f"fc1 bwd {name}", got,
+                                                   ref, dt)
         dh3 = k1[2].view(h3.shape)
         got2, plain2 = (wgrad(fn, h1, dh3, h3, a3, v["conv2.weight"],
                               v["conv2.bias"], dt)
@@ -1121,8 +1147,8 @@ def phase_fused_kernels() -> dict:
                              b2.reshape(-1), padding=1, groups=c),
             nbytes(t32["h1"], w2, b2, t32["h3"], t32["a3"]), conv2_flops,
             f32),
-        # The stem's and fc1's f32 forward and fc1's f32 backward: the f32
-        # call's CUDA-core kernels, at its own activations.
+        # The stem's f32 forward (the f32 call's CUDA-core kernel) and fc1's
+        # f32 forward and backward (3xTF32), at the f32 call's activations.
         "conv_fwd_stem": (
             lambda: cc.conv_fwd(x, w1c, b1c, channels_last=True),
             lambda: cc.conv_fwd_plain(x, w1c, b1c, channels_last=True),
@@ -1130,7 +1156,7 @@ def phase_fused_kernels() -> dict:
                              b1c.reshape(-1), padding=1, groups=c),
             nbytes(x, w1c, b1c, t32["h1"], t32["a1"]),
             2 * c * 32 * 32 * 9 * 28 * 28, f32),
-        "dense_fwd_fc1": (
+        "dense_fwd_tf32": (
             lambda: cd.dense_fwd(t32["f3"], w1, b1, relu=True, wdtype=f32,
                                  out_dtype=f32),
             lambda: cd.dense_fwd_plain(t32["f3"], w1, b1, relu=True,
@@ -1139,7 +1165,7 @@ def phase_fused_kernels() -> dict:
                                   w1.transpose(1, 2)),
             nbytes(t32["f3"], w1, b1, t32["h4"]), 2 * c * 32 * 3136 * 128,
             f32),
-        "dense_bwd_fc1": (
+        "dense_bwd_tf32": (
             lambda: cd.dense_bwd(t32["dz4"], t32["f3"], w1, gw1, gb1,
                                  wdtype=f32, gdtype=f32, dx_dtype=f32),
             lambda: cd.dense_bwd_plain(t32["dz4"], t32["f3"], w1, gw1, gb1,
@@ -1219,8 +1245,8 @@ def phase_fused_kernels() -> dict:
                "conv_wgrad_stem": ("stem_wgrad", f32, "dW"),
                "conv2_dgrad_tf32": ("conv_dgrad", f32),
                "conv_fwd_stem": ("stem", f32),
-               "dense_fwd_fc1": ("dense_fwd", f32),
-               "dense_bwd_fc1": ("dense_bwd", f32, "dW"),
+               "dense_fwd_tf32": ("dense_fwd", f32),
+               "dense_bwd_tf32": ("dense_bwd", f32, "dW"),
                "conv_wgrad_tc": ("conv_wgrad", bf16, "dW"),
                "conv_dgrad_tc": ("conv_dgrad", bf16),
                "dense_fwd": ("fc2", bf16),
@@ -1256,20 +1282,20 @@ def phase_fused_kernels() -> dict:
             "library_ms": library_ms}
         if err_key[name][0] in ("stem", "conv_fwd"):
             rows[name]["argmax_agreement"] = agree[err_key[name][:2]]
-        if name == "conv2_wgrad_tf32":  # max_abs_err: against f64 sums
-            rows[name]["max_abs_err_vs_f32_plain"] = errs[
-                "conv_wgrad_vs_plain", f32, "dW"]
-        if name == "conv2_dgrad_tf32":
-            rows[name]["max_abs_err_vs_f32_plain"] = errs[
-                "conv_dgrad_vs_plain", f32]
-    # fc1's backward has no single library call: as a reference, the two
-    # torch.bmm (dW = dz^T x, dx = dz W; in bf16 W cast from the f32
-    # buffer) and the sum (db) that compute the same outputs.
-    for name, dt in (("dense_bwd_tc", bf16), ("dense_bwd_fc1", f32)):
-        dz4, f3 = timed[dt]["dz4"], timed[dt]["f3"]
-        ref_runs = sorted(time_ms(lambda _: (
-            torch.bmm(dz4.transpose(1, 2), f3), torch.bmm(dz4, w1.to(dt)),
-            dz4.float().sum(dim=1)), None) for _ in range(3))
+        if name.endswith("_tf32"):  # max_abs_err: against f64 sums
+            key = (err_key[name][0] + "_vs_plain",) + err_key[name][1:]
+            rows[name]["max_abs_err_vs_f32_plain"] = errs[key]
+    # A dense backward has no single library call: as a reference, the two
+    # torch.bmm (dW = dz^T x, dx = dz W; in bf16 fc1's W cast from the f32
+    # buffer, fc2's x cast to f32) and the sum (db) that compute the same
+    # outputs.
+    for name, dz, xin, w in (("dense_bwd_tc", t["dz4"], t["f3"], w1),
+                             ("dense_bwd_tf32", t32["dz4"], t32["f3"], w1),
+                             ("dense_bwd", t["dl"], t["h4"], wf2)):
+        ref_runs = sorted(time_ms(lambda _, dz=dz, xin=xin, w=w: (
+            torch.bmm(dz.transpose(1, 2), xin.to(dz.dtype)),
+            torch.bmm(dz, w.to(dz.dtype)), dz.float().sum(dim=1)), None)
+            for _ in range(3))
         rows[name]["reference_ms"] = ref_runs[1]
         print(f"[fused] {name}: reference (two torch.bmm, W's cast and the "
               f"sum) {ref_runs[1]:.4f} ms (runs {ref_runs[0]:.4f}-"
@@ -1347,15 +1373,14 @@ def phase_fused_path() -> dict:
     check_kernels("run_bench (bf16)", bench, tc_steps=38)
     # The kernels' rows: the tensor-core ones and fc2's dense_fwd and
     # dense_bwd from the bf16 path, the f32 path's kernels from run_check
-    # (the rows of the stem's and fc1's f32 kernels: those kernels' counts).
+    # (the rows of the stem's f32 kernels: those kernels' counts).
     f32_path = check["kernel_launches"]
     return {**bench["launches"], **bench["kernel_launches"],
             **{k: f32_path[k] for k in ("conv_fwd", "conv2_wgrad_tf32",
-                                        "conv2_dgrad_tf32")},
+                                        "conv2_dgrad_tf32", "dense_fwd_tf32",
+                                        "dense_bwd_tf32")},
             "conv_wgrad_stem": f32_path["conv_wgrad"],
-            "conv_fwd_stem": f32_path["conv_fwd"],
-            "dense_fwd_fc1": f32_path["dense_fwd"],
-            "dense_bwd_fc1": f32_path["dense_bwd"]}
+            "conv_fwd_stem": f32_path["conv_fwd"]}
 
 
 def phase_fused_f32_call() -> dict:
@@ -1375,7 +1400,8 @@ def phase_fused_f32_call() -> dict:
     steps = 38
     want = {"conv_fwd": 2 * steps, "conv_wgrad": steps,
             "conv2_wgrad_tf32": steps, "conv2_dgrad_tf32": steps,
-            "dense_fwd": 2 * steps, "dense_bwd": 2 * steps}
+            "dense_fwd": steps, "dense_fwd_tf32": steps, "dense_bwd": steps,
+            "dense_bwd_tf32": steps}
     if not res["finite"] or res["kernel_launches"] != want:
         raise AssertionError(f"f32 call: finite {res['finite']}, launches "
                              f"{res['kernel_launches']}, expected {want}")
@@ -1490,16 +1516,16 @@ def check_kernels(what: str, result: dict, f32_steps: int = 0,
     of its dtype, per step: two forward convs, two weight gradients and one
     input gradient, and fc1's and fc2's forward and backward; in f32 all on
     the CUDA-core kernels but conv2's gradients (conv2_wgrad_tf32,
-    conv2_dgrad_tf32), in bf16 all on the tensor-core ones but fc2's (f32
-    weights)."""
+    conv2_dgrad_tf32) and fc1 (dense_fwd_tf32, dense_bwd_tf32), in bf16 all
+    on the tensor-core ones but fc2's (f32 weights)."""
     want = {"conv_fwd": 2 * f32_steps, "conv2_fwd_tc": tc_steps,
             "stem_fwd_tc": tc_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
             "conv_wgrad": f32_steps, "conv2_wgrad_tf32": f32_steps,
             "conv_wgrad_tc": 2 * tc_steps,
             "conv_dgrad_tc": tc_steps, "conv2_dgrad_tf32": f32_steps,
-            "dense_fwd": 2 * f32_steps + tc_steps,
-            "dense_fwd_tc": tc_steps, "dense_bwd": 2 * f32_steps + tc_steps,
-            "dense_bwd_tc": tc_steps}
+            "dense_fwd": f32_steps + tc_steps, "dense_fwd_tc": tc_steps,
+            "dense_fwd_tf32": f32_steps, "dense_bwd": f32_steps + tc_steps,
+            "dense_bwd_tc": tc_steps, "dense_bwd_tf32": f32_steps}
     got = result["kernel_launches"]
     print(f"[fused] {what}: launches by kernel {got}")
     if got != want:

@@ -36,7 +36,7 @@ Run on the card::
 
 prints the card's name and power limit and one JSON line per mode (the
 f32 call after the bf16 bench); ``--profile`` adds :func:`profile_call`'s
-lines, without and with dropout.
+lines: bf16 without and with dropout, then f32.
 """
 
 from __future__ import annotations
@@ -284,11 +284,12 @@ def time_call(compute_dtype=torch.float32, device="cuda",
 
 
 def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
-                 top: int = 12, use_dropout: bool = False) -> Dict:
-    """``torch.profiler`` over one kernel-path call at the north-star width
-    (with dropout if asked), after a warm-up call: the device's busy time
-    and idle share over the span of its events, the kernels launched, and
-    device time by kernel."""
+                 top: int = 12, use_dropout: bool = False,
+                 compute_dtype=torch.bfloat16) -> Dict:
+    """``torch.profiler`` over one kernel-path call in ``compute_dtype`` at
+    the north-star width (with dropout if asked), after a warm-up call: the
+    device's busy time and idle share over the span of its events, the
+    kernels launched, and device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -299,7 +300,7 @@ def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
 
     engine, params, _ = build_engine(device, num_clients, samples)
     kw = dict(learning_rate=LEARNING_RATE, momentum=0.9, clip_norm=1.0,
-              local_epochs=LOCAL_EPOCHS, compute_dtype=torch.bfloat16,
+              local_epochs=LOCAL_EPOCHS, compute_dtype=compute_dtype,
               use_dropout=use_dropout)
 
     def call():
@@ -330,7 +331,8 @@ def profile_call(device="cuda", num_clients: int = 100, samples: int = 600,
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
-    return {"mode": "profile", "use_dropout": use_dropout, "wall_ms": wall_ms,
+    return {"mode": "profile", "compute_dtype": str(compute_dtype),
+            "use_dropout": use_dropout, "wall_ms": wall_ms,
             "device_span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / span, "device_events": len(events),
             "kernel_launches": len(events) - copies,
@@ -345,7 +347,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one kernel-path call, without and "
-                         "with dropout")
+                         "with dropout, and one f32 call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the fused-training bench needs a CUDA device")
@@ -359,6 +361,8 @@ def main() -> None:
         for use_dropout in (False, True):
             print(json.dumps(profile_call(use_dropout=use_dropout)),
                   flush=True)
+        print(json.dumps(profile_call(compute_dtype=torch.float32)),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -121,8 +121,8 @@ __device__ __forceinline__ float mft_bf16_at(const uint4& v, int e) {
 }
 
 // ------------------------------------------------ 3xTF32
-// (the f32 tensor-core kernels of gram.cu, client_stem_raw.cu and
-// client_conv.cu)
+// (the f32 tensor-core kernels of gram.cu, client_stem_raw.cu,
+// client_conv.cu and client_dense.cu)
 
 // x rounded to TF32 (10 mantissa bits), to nearest even, as an f32 whose low
 // 13 bits are zero. An f32 operand a is split into hi = tf32(a) and
@@ -131,6 +131,17 @@ __device__ __forceinline__ float mft_tf32_rne(float x) {
   uint32_t b = __float_as_uint(x);
   b += 0xfffu + ((b >> 13) & 1u);
   return __uint_as_float(b & 0xffffe000u);
+}
+
+// d += a (16 x 8, row-major) * b (8 x 8, column-major): tf32 in, f32 sums.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------ copies and wgmma

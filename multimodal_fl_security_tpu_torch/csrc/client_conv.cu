@@ -572,17 +572,6 @@ constexpr size_t kTfWgradSmem =
 static_assert(kTfZPos / 8 % kTfPromote == 0, "whole chunks of k8 steps");
 static_assert(kTfWgradSmem <= kMftMaxSmem, "one block an SM");
 
-// d += a (16 x 8, row-major) * b (8 x 8, column-major): tf32 in, f32 sums.
-__device__ __forceinline__ void mma1688_tf32(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Element e of a float4 (e known at compile time once the loops are
 // unrolled).
 __device__ __forceinline__ float mft_f4_at(const float4& v, int e) {

@@ -57,8 +57,10 @@ def check(lib: ctypes.CDLL, err: int, what: str, prefix: str) -> None:
 #: launches of each local-training kernel of ``csrc/client_conv.cu`` and
 #: ``csrc/client_dense.cu``, by name. In f32 the wrappers launch the
 #: CUDA-core kernels ``conv_fwd``, ``conv_wgrad`` (the stem's),
-#: ``dense_fwd`` and ``dense_bwd``, and conv2's weight and input gradients
-#: on ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32`` (3xTF32); in bf16 the
+#: ``dense_fwd`` and ``dense_bwd`` (fc2), and conv2's weight and input
+#: gradients and fc1's forward and backward on ``conv2_wgrad_tf32``,
+#: ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and ``dense_bwd_tf32``
+#: (3xTF32); in bf16 the
 #: tensor-core kernels ``conv2_fwd_tc``, ``stem_fwd_tc``, ``conv_wgrad_tc``
 #: (conv2's and the stem's instantiations), ``conv_dgrad_tc``,
 #: ``dense_fwd_tc`` and ``dense_bwd_tc`` (fc2, with f32 weights, stays on
@@ -69,7 +71,7 @@ KERNEL_LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("conv_fwd", "conv2_fwd_tc", "stem_fwd_tc", "stem_raw_tc",
      "stem_raw_tf32", "conv_wgrad", "conv_wgrad_tc", "conv2_wgrad_tf32",
      "conv_dgrad_tc", "conv2_dgrad_tf32", "dense_fwd", "dense_fwd_tc",
-     "dense_bwd", "dense_bwd_tc"), 0)
+     "dense_fwd_tf32", "dense_bwd", "dense_bwd_tc", "dense_bwd_tf32"), 0)
 
 
 def count(kernel: str) -> None:

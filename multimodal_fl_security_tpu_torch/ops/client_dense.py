@@ -11,8 +11,12 @@ views of the flat parameter buffer (torch's ``[out, in]`` order, so fc1's
 input axis is the pooled map's (c, h, w) flatten) and biases ``[C, F]``.
 Weights are rounded to ``wdtype`` where the port's ``SimpleCNN.forward``
 casts them; products accumulate in f32; outputs round once to their dtype.
-``wdtype`` picks the kernel, in the open: f32 the CUDA-core ``dense_fwd`` and
-``dense_bwd``, bf16 the tensor-core ``dense_fwd_tc`` and ``dense_bwd_tc``.
+``wdtype`` and the geometry pick the kernel, in the open, before the launch:
+bf16 runs the tensor-core ``dense_fwd_tc`` and ``dense_bwd_tc``; f32 runs
+``dense_fwd_tf32`` and ``dense_bwd_tf32`` (3xTF32 on the tensor cores) where
+they take the call (fc1's geometry, see :func:`dense_fwd` and
+:func:`dense_bwd`), the CUDA-core ``dense_fwd`` and ``dense_bwd`` otherwise
+(fc2). The rule is the C entries' ``mft_dense_{fwd,bwd}_tf32_takes``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,14 @@ def _library() -> ctypes.CDLL:
     lib.mft_dense_bwd.restype = i
     lib.mft_dense_bwd_tc.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_void_p]
     lib.mft_dense_bwd_tc.restype = i
+    lib.mft_dense_fwd_tf32.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_void_p]
+    lib.mft_dense_fwd_tf32.restype = i
+    lib.mft_dense_fwd_tf32_takes.argtypes = [p] * 2 + [i] * 5
+    lib.mft_dense_fwd_tf32_takes.restype = i
+    lib.mft_dense_bwd_tf32.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_void_p]
+    lib.mft_dense_bwd_tf32.restype = i
+    lib.mft_dense_bwd_tf32_takes.argtypes = [p] * 5 + [i] * 6
+    lib.mft_dense_bwd_tf32_takes.restype = i
     lib.mft_client_dense_error_string.argtypes = [i]
     lib.mft_client_dense_error_string.restype = ctypes.c_char_p
     return lib
@@ -83,11 +95,16 @@ def dense_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               relu: bool = False, wdtype: torch.dtype = torch.float32,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``y = x W^T + b`` per client, then relu if asked: [C, rows, F] in
-    ``out_dtype``. ``wdtype`` f32 runs the CUDA-core kernel ``dense_fwd``;
-    bf16 the tensor-core kernel ``dense_fwd_tc``, which takes ``x`` in bf16
-    only (any other x raises: it never drops to the CUDA-core kernel).
-    ``dense_fwd.launches`` counts the launches of both,
-    :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    ``out_dtype``. ``wdtype`` bf16 runs the tensor-core kernel
+    ``dense_fwd_tc``, which takes ``x`` in bf16 only (any other x raises: it
+    never drops to the CUDA-core kernel). ``wdtype`` f32 runs
+    ``dense_fwd_tf32`` (3xTF32) when it takes the call, chosen before the
+    launch: x and w f32, K a multiple of 8, F a multiple of 64, x's rows
+    16-byte aligned and w's 8-byte aligned, each with a contiguous last axis
+    (fc1: K = 3,136, F = 128, w a view of the flat buffer); else the
+    CUDA-core kernel ``dense_fwd`` (fc2: F = 10). ``dense_fwd.launches``
+    counts the launches of all three, :data:`~._launch.KERNEL_LAUNCHES` each
+    one's."""
     if x.device.type == "cpu":
         return dense_fwd_plain(x, w, b, relu=relu, wdtype=wdtype,
                                out_dtype=out_dtype)
@@ -108,6 +125,11 @@ def dense_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         kernel = "dense_fwd_tc"
         err = lib.mft_dense_fwd_tc(*refs, c, rows, k, f, int(relu),
                                    device.index, stream_of(x))
+    elif lib.mft_dense_fwd_tf32_takes(refs[0], refs[1], c, rows, k, f,
+                                      DTYPE_CODES[wdtype]):
+        kernel = "dense_fwd_tf32"
+        err = lib.mft_dense_fwd_tf32(*refs, c, rows, k, f, int(relu),
+                                     device.index, stream_of(x))
     else:
         kernel = "dense_fwd"
         err = lib.mft_dense_fwd(*refs, c, rows, k, f, int(relu),
@@ -145,11 +167,16 @@ def dense_bwd(dz: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     (``gw`` [C, F, K]) and db (``gb`` [C, F]), rounded to ``gdtype``, into
     the f32 gradient buffer's views, and returns dx = dz W [C, rows, K] in
     ``dx_dtype``, times ``mask > 0`` (the previous layer's relu) when a mask
-    is given. ``wdtype`` f32 runs the CUDA-core kernel ``dense_bwd``; bf16
-    the tensor-core kernel ``dense_bwd_tc``, which takes dz and x in bf16,
-    rows <= 32 and F <= 128 only (any other call raises: it never drops to
-    the CUDA-core kernel). ``dense_bwd.launches`` counts the launches of
-    both, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    is given. ``wdtype`` bf16 runs the tensor-core kernel ``dense_bwd_tc``,
+    which takes dz and x in bf16, rows <= 32 and F <= 128 only (any other
+    call raises: it never drops to the CUDA-core kernel). ``wdtype`` f32
+    runs ``dense_bwd_tf32`` (3xTF32) when it takes the call, chosen before
+    the launch: ``gdtype`` and ``dx_dtype`` f32 too, dz, x and w f32, rows
+    <= 32, F 64 or 128, K a multiple of 8, dz's and x's rows 16-byte aligned
+    and w's, dW's and dx's 8-byte aligned, each with a contiguous last axis
+    (fc1); else the CUDA-core kernel ``dense_bwd`` (fc2: F = 10).
+    ``dense_bwd.launches`` counts the launches of all three,
+    :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if dz.device.type == "cpu":
         return dense_bwd_plain(dz, x, w, gw, gb, mask=mask, wdtype=wdtype,
                                gdtype=gdtype, dx_dtype=dx_dtype)
@@ -178,6 +205,12 @@ def dense_bwd(dz: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         kernel = "dense_bwd_tc"
         err = lib.mft_dense_bwd_tc(*refs, c, rows, k, f, DTYPE_CODES[gdtype],
                                    device.index, stream_of(dz))
+    elif lib.mft_dense_bwd_tf32_takes(
+            refs[0], refs[1], refs[2], refs[4], refs[6], c, rows, k, f,
+            DTYPE_CODES[wdtype], DTYPE_CODES[gdtype]):
+        kernel = "dense_bwd_tf32"
+        err = lib.mft_dense_bwd_tf32(*refs, c, rows, k, f, device.index,
+                                     stream_of(dz))
     else:
         kernel = "dense_bwd"
         err = lib.mft_dense_bwd(*refs, c, rows, k, f, DTYPE_CODES[wdtype],

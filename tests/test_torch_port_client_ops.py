@@ -710,7 +710,8 @@ def dense_case(gen, c, rows, k, f, dtype, ints=False):
 @pytest.mark.cuda
 def test_kernel_choice_follows_the_dtype(cuda):
     """f32 launches the CUDA-core kernels but for conv2's weight and input
-    gradients (conv2_wgrad_tf32, conv2_dgrad_tf32: 3xTF32), bf16 the
+    gradients (conv2_wgrad_tf32, conv2_dgrad_tf32: 3xTF32) and a dense
+    layer at fc1's geometry (dense_fwd_tf32, dense_bwd_tf32), bf16 the
     tensor-core ones; the raw mode, K3, runs stem_raw_tf32 in f32 and
     stem_raw_tc in bf16. Each kernel has its own count, the wrappers count
     all of theirs."""
@@ -739,19 +740,21 @@ def test_kernel_choice_follows_the_dtype(cuda):
         client_stem_conv(x4.to(dtype), w4.to(dtype))
         counts[dtype, "raw", 8] = {
             k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
-        before = dict(KERNEL_LAUNCHES)
-        dx, dw, db = dense_case(cuda, 3, 7, 100, 37, dtype)
-        dense_fwd(dx, dw, db, wdtype=dtype)
-        counts[dtype, "dense"] = {
-            k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
-        before = dict(KERNEL_LAUNCHES)
-        bwd_before = dense_bwd.launches
-        dz = torch.randn((3, 7, 37), generator=cuda, device="cuda").to(dtype)
-        dense_bwd(dz, dx, dw, torch.empty_like(dw), torch.empty_like(db),
-                  wdtype=dtype, gdtype=dtype, dx_dtype=dtype)
-        assert dense_bwd.launches == bwd_before + 1
-        counts[dtype, "dense_bwd"] = {
-            k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+        for f, k in ((37, 100), (64, 200)):  # off fc1's geometry, on it
+            before = dict(KERNEL_LAUNCHES)
+            dx, dw, db = dense_case(cuda, 3, 7, k, f, dtype)
+            dense_fwd(dx, dw, db, wdtype=dtype)
+            counts[dtype, "dense", f] = {
+                k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
+            before = dict(KERNEL_LAUNCHES)
+            bwd_before = dense_bwd.launches
+            dz = torch.randn((3, 7, f), generator=cuda,
+                             device="cuda").to(dtype)
+            dense_bwd(dz, dx, dw, torch.empty_like(dw), torch.empty_like(db),
+                      wdtype=dtype, gdtype=dtype, dx_dtype=dtype)
+            assert dense_bwd.launches == bwd_before + 1
+            counts[dtype, "dense_bwd", f] = {
+                k: KERNEL_LAUNCHES[k] - before[k] for k in KERNEL_LAUNCHES}
     torch.cuda.synchronize()
     zero = dict.fromkeys(KERNEL_LAUNCHES, 0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -768,10 +771,15 @@ def test_kernel_choice_follows_the_dtype(cuda):
             assert counts[dtype, layer, cin] == want, (dtype, layer, cin)
         assert counts[dtype, "raw", 8] == {
             **zero, ("stem_raw_tc" if tc else "stem_raw_tf32"): 1}
-        assert counts[dtype, "dense"] == {**zero, "dense_fwd": int(not tc),
-                                          "dense_fwd_tc": int(tc)}
-        assert counts[dtype, "dense_bwd"] == {
-            **zero, "dense_bwd": int(not tc), "dense_bwd_tc": int(tc)}
+        # f32 at K 100, F 37 on the CUDA-core kernels; at K 200, F 64
+        # (fc1's geometry: K a multiple of 8, F of 64) on the 3xTF32 ones.
+        for f, f32_kernel in ((37, ""), (64, "_tf32")):
+            assert counts[dtype, "dense", f] == {
+                **zero, "dense_fwd" + f32_kernel: int(not tc),
+                "dense_fwd_tc": int(tc)}, f
+            assert counts[dtype, "dense_bwd", f] == {
+                **zero, "dense_bwd" + f32_kernel: int(not tc),
+                "dense_bwd_tc": int(tc)}, f
 
 
 @pytest.mark.cuda
@@ -879,7 +887,11 @@ def test_dense_kernels_match_plain(cuda, c, rows, k, f, ints, flat, dtype):
     the backward on the tensor-core kernels, the forward with K split over
     a cluster), and two calls bitwise equal; ``flat``: W, dW and db are
     views of flat [C, D] buffers, whose odd clients' rows are 8-byte
-    aligned only."""
+    aligned only. f32 at fc1's geometry runs the 3xTF32 kernels
+    (dense_fwd_tf32, dense_bwd_tf32), held on random operands to the f64
+    result instead: rtol 1e-5, atol 1e-5 of max|f64|, each error at most 4x
+    the f32 plain version's (``tests/test_torch_port_dense_tf32.py``)."""
+    tf32 = dtype == torch.float32 and k % 8 == 0 and f % 64 == 0 and not ints
     x, w, b = dense_case(cuda, c, rows, k, f, dtype, ints)
     grads = lambda: (torch.empty_like(w), torch.empty_like(b))  # noqa: E731
     if flat:
@@ -896,16 +908,37 @@ def test_dense_kernels_match_plain(cuda, c, rows, k, f, ints, flat, dtype):
         dx = fn(dz, x, w, gw, gb, mask=x, wdtype=dtype, gdtype=dtype,
                 dx_dtype=dtype)
         outs.append((gw, gb, dx))
+    dx64 = torch.bmm(dz.double(), w.double())
+    refs64 = (torch.relu(torch.baddbmm(b.double().unsqueeze(1), x.double(),
+                                       w.double().transpose(1, 2))),
+              torch.bmm(dz.double().transpose(1, 2), x.double()),
+              dz.double().sum(dim=1), torch.where(x > 0, dx64, 0.0))
     torch.cuda.synchronize()
     assert torch.equal(y, y_again)
     if ints:
         assert float(y_want.float().abs().max()) > 20  # not all clipped
         assert torch.equal(y, y_want)
+    elif tf32:
+        close_f64(y, y_want, refs64[0])
     else:
         close(y, y_want, dtype, scale=4.0)
-    for got, rep, ref in zip(*outs):
+    for got, rep, ref, ref64 in zip(*outs, refs64[1:]):
         assert torch.equal(got, rep)
-        close(got, ref, dtype, scale=float(ref.float().abs().max()))
+        if tf32:
+            close_f64(got, ref, ref64)
+        else:
+            close(got, ref, dtype, scale=float(ref.float().abs().max()))
+
+
+def close_f64(got, plain, ref64):
+    """A 3xTF32 kernel's f32 result: within rtol 1e-5 and atol 1e-5 of
+    max|ref64| of the f64 result, its error at most 4x the plain
+    version's."""
+    torch.testing.assert_close(got.double(), ref64, rtol=1e-5,
+                               atol=1e-5 * float(ref64.abs().max()))
+    err, err_plain = (float((v.double() - ref64).abs().max())
+                      for v in (got, plain))
+    assert err <= 4 * err_plain, (err, err_plain)
 
 
 @pytest.mark.cuda

@@ -217,7 +217,8 @@ def test_kernel_path_bf16_is_reproducible_and_counted():
         "stem_raw_tc": 0, "stem_raw_tf32": 0, "conv_wgrad": 0,
         "conv_wgrad_tc": 2 * steps, "conv2_wgrad_tf32": 0,
         "conv_dgrad_tc": steps, "conv2_dgrad_tf32": 0, "dense_fwd": steps,
-        "dense_fwd_tc": steps, "dense_bwd": steps, "dense_bwd_tc": steps}
+        "dense_fwd_tc": steps, "dense_fwd_tf32": 0, "dense_bwd": steps,
+        "dense_bwd_tc": steps, "dense_bwd_tf32": 0}
     assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
     # bf16 rounds at the same places; near ties may route differently.
     assert float((out - ref).abs().max()) < 1e-2
