@@ -15,8 +15,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
    the bf16 forward, the conv gradients and fc1's forward and backward, and
    the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
-   ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
-   ``dense_bwd_tf32``).
+   ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``,
+   ``dense_fwd_tf32`` and ``dense_bwd_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
@@ -48,8 +48,9 @@ paths and fails loudly on anything wrong. Phases, in order:
    ``client_sgd.cu`` against its plain version on one step's real
    activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
    and backward; CE; SGD at [100, 421,642]), in f32 with TF32 off (max
-   |kernel - plain| <= 1e-5 * max|plain|; conv2's weight and input
-   gradients and fc1's forward and backward, on ``conv2_wgrad_tf32``,
+   |kernel - plain| <= 1e-5 * max|plain|; the stem's and conv2's forward,
+   conv2's weight and input gradients and fc1's forward and backward, on
+   ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``,
    ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and ``dense_bwd_tf32``, are
    held at that tolerance to the exact (f64) results instead, their errors
    there to at most 4x the f32 plain versions', and their distances from
@@ -63,7 +64,7 @@ paths and fails loudly on anything wrong. Phases, in order:
    of it, the median kept, the spread printed): conv2's forward and
    gradient kernels in both dtypes, the stem's weight gradient in f32
    (``conv_wgrad``, in the row ``conv_wgrad_stem``), the stem's forward
-   also in f32 (row ``conv_fwd_stem``), fc1's f32 forward and backward
+   also in f32 (``stem_fwd_f32``), fc1's f32 forward and backward
    (``dense_fwd_tf32``, ``dense_bwd_tf32``), fc2's forward and backward in
    the bf16 path's kernels, the rest in bf16, the stem's bf16 weight gradient
    with its library call and bound; f32 bounds count operations at the
@@ -71,10 +72,10 @@ paths and fails loudly on anything wrong. Phases, in order:
    fc1's and fc2's backward beside the two ``torch.bmm`` and the sum that
    compute the same outputs (a reference, not a single library call);
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
-   ``mirror_local_train`` within 1e-4 at f32; per step 1 ``conv_wgrad``,
-   the stem's, 1 each of ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``,
-   ``dense_fwd_tf32`` and ``dense_bwd_tf32``, the convs' forward and fc2
-   on the CUDA-core kernels); (c)
+   ``mirror_local_train`` within 1e-4 at f32; per step 1 each of
+   ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``conv_wgrad`` (the stem's),
+   ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
+   ``dense_bwd_tf32``, fc2 on the CUDA-core kernels, no ``conv_fwd``); (c)
    ``run_bench()`` at full width in
    bf16:
    finite parameters, 12 launches per step x 38 steps, by kernel 38 each
@@ -85,15 +86,18 @@ paths and fails loudly on anything wrong. Phases, in order:
    the mirror's and the engine trainer's ms per call; then one f32
    ``fused_local_train`` call on the same clients
    (``fused_kernel_bench.time_call``), timed with its launches by kernel
-   (38 each of ``dense_fwd_tf32``, ``dense_bwd_tf32``, and of ``dense_fwd``
-   and ``dense_bwd`` for fc2);
+   (38 each of ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``dense_fwd_tf32``,
+   ``dense_bwd_tf32``, and of ``dense_fwd`` and ``dense_bwd`` for fc2);
    (d) K3, the raw stem conv, at [100, 32, 28*28*8] x [100, 4, 4, 8, 128],
    in each dtype: its path (one ``client_stem_conv`` call, counted: one
    ``stem_raw_tc`` launch in bf16, one ``stem_raw_tf32`` in f32), held to
    ``client_stem_conv_plain`` at the tolerances of (a) (in f32 also its
    error against f64 to at most 4x the plain's), bitwise on repeat and, on
    small integers, bitwise the plain version; times beside grouped
-   ``F.conv2d`` (three timings, the median kept).
+   ``F.conv2d`` (three timings, the median kept); then one f32 K3 call off
+   K3's geometry (one input channel, [100, 32, 28*28] x [100, 4, 4, 1,
+   128]), its path one ``conv_fwd`` launch (the CUDA-core raw kernel), held
+   to the plain version, timed the same way.
 8. The Mosaic probe set (K5): ``benchmarks/mosaic_probe.run_probes()``,
    every probe's kernel path against its plain version (layout, generator
    and carried sums bitwise, the rest within the JAX probe's tolerance);
@@ -238,10 +242,12 @@ TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
               "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
               "dense_bwd_tc_kernel", "stem_raw_tf32_kernel",
               "conv2_wgrad_tf32_kernel", "conv2_dgrad_tf32_kernel",
-              "dense_fwd_tf32_kernel", "dense_bwd_tf32_kernel")
+              "dense_fwd_tf32_kernel", "dense_bwd_tf32_kernel",
+              "conv2_fwd_tf32_kernel")
 #: the instruction phase 2 requires in a 3xTF32 kernel's SASS: HGMMA for
 #: wgmma, HMMA for mma.sync
 TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
+            "conv2_fwd_tf32_kernel": "HMMA",
             "conv2_wgrad_tf32_kernel": "HMMA",
             "conv2_dgrad_tf32_kernel": "HMMA",
             "dense_fwd_tf32_kernel": "HMMA",
@@ -852,6 +858,24 @@ def dgrad_f64(dp: torch.Tensor, h: torch.Tensor, arg: torch.Tensor,
     return cc._ungrouped(dx, c)
 
 
+def pooled_f64(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """The exact pooled forward of a 3x3 SAME stride-1 conv: the
+    convolution summed in f64 (grouped ``F.conv2d``), then each 2x2
+    window's max, the bias and relu, in f64."""
+    import torch.nn.functional as F
+
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+
+    c, bsz = x.shape[:2]
+    z = cc._ungrouped(F.conv2d(cc._grouped(x.double()),
+                               w.double().reshape(-1, *w.shape[2:]),
+                               padding=1, groups=c), c)
+    cout, oh, ow = z.shape[2:]
+    win = z.reshape(c, bsz, cout, oh // 2, 2, ow // 2, 2).amax(dim=(4, 6))
+    return torch.relu(win + b.double()[:, None, :, None, None])
+
+
 def held_f64(what: str, got: torch.Tensor, exact: torch.Tensor,
              plain: torch.Tensor) -> tuple:
     """A 3xTF32 kernel's f32 output held to the exact (f64) one at
@@ -953,21 +977,29 @@ def phase_fused_kernels() -> dict:
         fn(xin, dp, h, arg, gw, gb, dtype=dt)
         return gw, gb
 
+    def forward(what, xin, layer, dt, nhwc=False):
+        """One pooled conv (``layer`` conv1, the stem, or conv2) at dt:
+        held to its plain version (bf16) or to the exact (f64) pooled map
+        (f32: stem_fwd_f32's FMA chain and conv2_fwd_tf32's 3xTF32 sums
+        keep f32's accuracy), its argmax to the plain version's."""
+        wl, bl = v[f"{layer}.weight"], v[f"{layer}.bias"]
+        got, arg = cc.conv_fwd(xin, wl, bl, dtype=dt, channels_last=nhwc)
+        want, warg = cc.conv_fwd_plain(xin, wl, bl, dtype=dt,
+                                       channels_last=nhwc)
+        key = "stem" if layer == "conv1" else "conv2_fwd"
+        if dt == f32:
+            errs[key, dt], errs[key + "_vs_plain", dt] = held_f64(
+                what, got, pooled_f64(xin, wl, bl), want)
+        else:
+            errs[key, dt] = held(what, got, want, dt)
+        agree[key, dt] = held_argmax(what.split(" [")[0], arg, warg, xin, wl,
+                                     dt)
+        return got, arg
+
     for dt in (f32, bf16):
-        h1, a1 = cc.conv_fwd(x, v["conv1.weight"], v["conv1.bias"], dtype=dt,
-                             channels_last=True)
-        want, warg = cc.conv_fwd_plain(x, v["conv1.weight"], v["conv1.bias"],
-                                       dtype=dt, channels_last=True)
-        errs["stem", dt] = held("stem fwd [100, 32, 1, 28, 28]", h1, want, dt)
-        h3, a3 = cc.conv_fwd(h1, v["conv2.weight"], v["conv2.bias"], dtype=dt)
-        want, warg3 = cc.conv_fwd_plain(h1, v["conv2.weight"],
-                                        v["conv2.bias"], dtype=dt)
-        errs["conv_fwd", dt] = held("conv2 fwd [100, 32, 32, 14, 14]", h3,
-                                    want, dt)
-        agree["stem", dt] = held_argmax("stem fwd", a1, warg, x,
-                                        v["conv1.weight"], dt)
-        agree["conv_fwd", dt] = held_argmax("conv2 fwd", a3, warg3, h1,
-                                            v["conv2.weight"], dt)
+        h1, a1 = forward("stem fwd [100, 32, 1, 28, 28]", x, "conv1", dt,
+                         nhwc=True)
+        h3, a3 = forward("conv2 fwd [100, 32, 32, 14, 14]", h1, "conv2", dt)
         f3 = h3.view(c, 32, -1)
         h4 = cd.dense_fwd(f3, v["fc1.weight"], v["fc1.bias"], relu=True,
                           wdtype=dt, out_dtype=dt)
@@ -1140,16 +1172,17 @@ def phase_fused_kernels() -> dict:
                              groups=c),
             nbytes(x, w1c, b1c, t["h1"], t["a1"]),
             2 * c * 32 * 32 * 9 * 28 * 28, bf16),
-        "conv_fwd": (
+        # The f32 call's kernels at its activations: conv2's forward
+        # (3xTF32), the stem's (CUDA cores), fc1's forward and backward
+        # (3xTF32).
+        "conv2_fwd_tf32": (
             lambda: cc.conv_fwd(t32["h1"], w2, b2),
             lambda: cc.conv_fwd_plain(t32["h1"], w2, b2),
             lambda: F.conv2d(xg32, w2.reshape(-1, *w2.shape[2:]),
                              b2.reshape(-1), padding=1, groups=c),
             nbytes(t32["h1"], w2, b2, t32["h3"], t32["a3"]), conv2_flops,
             f32),
-        # The stem's f32 forward (the f32 call's CUDA-core kernel) and fc1's
-        # f32 forward and backward (3xTF32), at the f32 call's activations.
-        "conv_fwd_stem": (
+        "stem_fwd_f32": (
             lambda: cc.conv_fwd(x, w1c, b1c, channels_last=True),
             lambda: cc.conv_fwd_plain(x, w1c, b1c, channels_last=True),
             lambda: F.conv2d(xsg32, w1c.reshape(-1, 1, 3, 3),
@@ -1237,14 +1270,14 @@ def phase_fused_kernels() -> dict:
             lambda: cs.client_sgd_update_plain(pk2, mk2, g, partial, **opt),
             None, 5 * nbytes(g), 5 * g.numel(), f32),
     }
-    err_key = {"conv_fwd": ("conv_fwd", f32),
-               "conv2_fwd_tc": ("conv_fwd", bf16),
+    err_key = {"conv2_fwd_tf32": ("conv2_fwd", f32),
+               "conv2_fwd_tc": ("conv2_fwd", bf16),
                "stem_fwd_tc": ("stem", bf16),
                "dense_fwd_tc": ("dense_fwd", bf16),
                "conv2_wgrad_tf32": ("conv_wgrad", f32, "dW"),
                "conv_wgrad_stem": ("stem_wgrad", f32, "dW"),
                "conv2_dgrad_tf32": ("conv_dgrad", f32),
-               "conv_fwd_stem": ("stem", f32),
+               "stem_fwd_f32": ("stem", f32),
                "dense_fwd_tf32": ("dense_fwd", f32),
                "dense_bwd_tf32": ("dense_bwd", f32, "dW"),
                "conv_wgrad_tc": ("conv_wgrad", bf16, "dW"),
@@ -1280,10 +1313,10 @@ def phase_fused_kernels() -> dict:
             "max_abs_err": errs[err_key[name]], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
-        if err_key[name][0] in ("stem", "conv_fwd"):
+        if err_key[name][0] in ("stem", "conv2_fwd"):
             rows[name]["argmax_agreement"] = agree[err_key[name][:2]]
-        if name.endswith("_tf32"):  # max_abs_err: against f64 sums
-            key = (err_key[name][0] + "_vs_plain",) + err_key[name][1:]
+        key = (err_key[name][0] + "_vs_plain",) + err_key[name][1:]
+        if key in errs:  # max_abs_err: against f64 sums
             rows[name]["max_abs_err_vs_f32_plain"] = errs[key]
     # A dense backward has no single library call: as a reference, the two
     # torch.bmm (dW = dz^T x, dx = dz W; in bf16 fc1's W cast from the f32
@@ -1376,18 +1409,18 @@ def phase_fused_path() -> dict:
     # (the rows of the stem's f32 kernels: those kernels' counts).
     f32_path = check["kernel_launches"]
     return {**bench["launches"], **bench["kernel_launches"],
-            **{k: f32_path[k] for k in ("conv_fwd", "conv2_wgrad_tf32",
+            **{k: f32_path[k] for k in ("stem_fwd_f32", "conv2_fwd_tf32",
+                                        "conv2_wgrad_tf32",
                                         "conv2_dgrad_tf32", "dense_fwd_tf32",
                                         "dense_bwd_tf32")},
-            "conv_wgrad_stem": f32_path["conv_wgrad"],
-            "conv_fwd_stem": f32_path["conv_fwd"]}
+            "conv_wgrad_stem": f32_path["conv_wgrad"]}
 
 
 def phase_fused_f32_call() -> dict:
     """7c, continued: one f32 ``fused_local_train`` call on the north
     star's clients (``fused_kernel_bench.time_call``): ms per call and
     launches by kernel; finite parameters, every conv and dense launch on
-    the f32 path's kernels."""
+    the f32 path's kernels, none on ``conv_fwd``."""
     from multimodal_fl_security_tpu_torch.benchmarks.fused_kernel_bench import (
         time_call,
     )
@@ -1398,7 +1431,8 @@ def phase_fused_f32_call() -> dict:
           f"{res['ms_per_call']:.3f} ms per call (runs {runs}); launches by "
           f"kernel {res['kernel_launches']}")
     steps = 38
-    want = {"conv_fwd": 2 * steps, "conv_wgrad": steps,
+    want = {"stem_fwd_f32": steps, "conv2_fwd_tf32": steps,
+            "conv_wgrad": steps,
             "conv2_wgrad_tf32": steps, "conv2_dgrad_tf32": steps,
             "dense_fwd": steps, "dense_fwd_tf32": steps, "dense_bwd": steps,
             "dense_bwd_tf32": steps}
@@ -1423,9 +1457,10 @@ def stem_f64(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
 
 def phase_k3() -> list:
     """7d: K3, the raw stem conv, at [100, 32, 28*28*8] x [100, 4, 4, 8,
-    128], in bf16 (``stem_raw_tc``) and f32 (``stem_raw_tf32``); returns
-    both rows, each one's launches those of its path (one
-    ``client_stem_conv`` call, every count set to 0 just before)."""
+    128], in bf16 (``stem_raw_tc``) and f32 (``stem_raw_tf32``), then in f32
+    off its geometry (``conv_fwd``, :func:`raw_conv_fwd`); returns the three
+    rows, each one's launches those of its path (one ``client_stem_conv``
+    call, every count set to 0 just before)."""
     import torch.nn.functional as F
 
     from multimodal_fl_security_tpu_torch.ops import client_conv as cc
@@ -1507,19 +1542,83 @@ def phase_k3() -> list:
         del xd, wd, y, want, got_i, want_i, xg, wg
     del x, w4, xi, wi, ref
     torch.cuda.empty_cache()
+    rows.append(raw_conv_fwd(c, b, gen))
     return rows
+
+
+def raw_conv_fwd(c: int, b: int, gen: torch.Generator) -> dict:
+    """7d, continued: an f32 K3 call off K3's geometry (one input channel,
+    as the north star's images: [C, B, 28*28] x [C, 4, 4, 1, 128]), whose
+    path is one launch of the CUDA-core raw ``conv_fwd`` (every count set to
+    0 just before); held to the plain version, its error against f64
+    printed; times beside grouped ``F.conv2d``. Returns its row."""
+    import torch.nn.functional as F
+
+    from multimodal_fl_security_tpu_torch.ops import client_conv as cc
+    from multimodal_fl_security_tpu_torch.ops._launch import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+
+    x = torch.randn((c, b, 28 * 28), generator=gen, device="cuda")
+    w4 = 0.1 * torch.randn((c, 4, 4, 1, 128), generator=gen, device="cuda")
+    reset_kernel_launches()
+    y = cc.client_stem_conv(x, w4)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    print(f"[K3] path: one f32 client_stem_conv call at one input channel, "
+          f"launches by kernel {launches}")
+    if launches != {**dict.fromkeys(launches, 0), "conv_fwd": 1}:
+        raise AssertionError(f"K3 off its geometry did not run conv_fwd "
+                             f"once: {launches}")
+    if y.shape != (c, b, 14, 14, 128) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"K3's output off its geometry: "
+                             f"{tuple(y.shape)}, or not finite")
+    want = cc.client_stem_conv_plain(x, w4)
+    err = held("K3 raw stem [100, 32, 784] (conv_fwd)", y, want,
+               torch.float32)
+    xg = cc._grouped(x.view(c, b, 1, 28, 28))  # [B, C, 28, 28]
+    wg = w4.permute(0, 4, 3, 1, 2).reshape(-1, 1, 4, 4).contiguous()
+    ref = cc._ungrouped(F.conv2d(xg.double(), wg.double(), stride=2,
+                                 padding=1, groups=c), c).permute(0, 1, 3, 4,
+                                                                  2)
+    print(f"[K3] conv_fwd f32 vs f64: kernel "
+          f"{float((y.double() - ref).abs().max()):.6g}, plain "
+          f"{float((want.double() - ref).abs().max()):.6g}")
+    ms, plain_ms = turns(lambda: cc.client_stem_conv(x, w4),
+                         lambda: cc.client_stem_conv_plain(x, w4))
+    lib_runs = sorted(time_ms(lambda _: F.conv2d(
+        xg, wg, stride=2, padding=1, groups=c), None) for _ in range(3))
+    moved = nbytes(x, w4, y)
+    flops = 2 * c * b * 196 * 128 * 16
+    bound_ms, bound_by = bound(moved, flops)
+    print(f"[K3] conv_fwd f32 at one input channel: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (grouped F.conv2d) "
+          f"{lib_runs[1]:.4f} ms (runs {lib_runs[0]:.4f}-{lib_runs[2]:.4f}), "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    row = {"name": "conv_fwd", "route": "cuda",
+           "source": FUSED_SOURCES["conv"], "replaces": K3_REPLACES,
+           "launches": launches["conv_fwd"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_runs[1]}
+    del x, w4, y, want, ref, xg, wg
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_kernels(what: str, result: dict, f32_steps: int = 0,
                   tc_steps: int = 0) -> None:
     """Every launch of the conv and dense wrappers went through the kernel
     of its dtype, per step: two forward convs, two weight gradients and one
-    input gradient, and fc1's and fc2's forward and backward; in f32 all on
-    the CUDA-core kernels but conv2's gradients (conv2_wgrad_tf32,
-    conv2_dgrad_tf32) and fc1 (dense_fwd_tf32, dense_bwd_tf32), in bf16 all
-    on the tensor-core ones but fc2's (f32 weights)."""
-    want = {"conv_fwd": 2 * f32_steps, "conv2_fwd_tc": tc_steps,
-            "stem_fwd_tc": tc_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
+    input gradient, and fc1's and fc2's forward and backward; in f32 conv2
+    and fc1 on the 3xTF32 kernels (conv2_fwd_tf32, conv2_wgrad_tf32,
+    conv2_dgrad_tf32, dense_fwd_tf32, dense_bwd_tf32), the stem's forward
+    on stem_fwd_f32 and the rest on the CUDA-core kernels, none on
+    conv_fwd; in bf16 all on the tensor-core ones but fc2's (f32
+    weights)."""
+    want = {"conv_fwd": 0, "conv2_fwd_tc": tc_steps,
+            "conv2_fwd_tf32": f32_steps, "stem_fwd_tc": tc_steps,
+            "stem_fwd_f32": f32_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
             "conv_wgrad": f32_steps, "conv2_wgrad_tf32": f32_steps,
             "conv_wgrad_tc": 2 * tc_steps,
             "conv_dgrad_tc": tc_steps, "conv2_dgrad_tf32": f32_steps,

@@ -12,13 +12,18 @@
 //    copies, fold_stem) and conv2's input gradient.
 //
 // Kernels:
-//  - conv_fwd: K x K / stride / pad convolution, then either nothing (raw) or
-//    the 2x2 max-pool epilogue: the max over the four window positions, in
-//    (di, dj) order, the first maximum winning, then bias and relu. That is
-//    the stem in ConvPoolFused form (a 3x3 SAME conv evaluated at the four
-//    pool offsets is the 4x4 stride-2 conv on the embedded kernel w4, and the
-//    max over its four channel groups) and conv2 + bias + relu + pool. It
-//    writes the pooled map and a 2-bit argmax (as one byte) per output.
+//  - conv_fwd: K x K / stride / pad convolution in f32, raw (K3's contract)
+//    off K3's own geometry.
+//  - The pooled forward: the convolution, then the 2x2 max-pool epilogue:
+//    the max over the four window positions, in (di, dj) order, the first
+//    maximum winning, then bias and relu. That is the stem in ConvPoolFused
+//    form (a 3x3 SAME conv evaluated at the four pool offsets is the 4x4
+//    stride-2 conv on the embedded kernel w4, and the max over its four
+//    channel groups) and conv2 + bias + relu + pool. It writes the pooled
+//    map and a 2-bit argmax (as one byte) per output: conv2_fwd_tc and
+//    stem_fwd_tc for bf16 on the tensor cores, conv2_fwd_tf32 for f32 in
+//    3xTF32 and stem_fwd_f32 for f32 on the CUDA cores (their sections
+//    below).
 //  - conv_wgrad: dW and db of one client from the layer's input and the
 //    pooled output's gradient, routed through the argmax and the relu inside
 //    the kernel. The gradient reaches the 3x3 kernel directly, which is the
@@ -30,26 +35,20 @@
 //  - conv2_wgrad_tf32, conv2_dgrad_tf32: conv2's weight and input
 //    gradients for f32 on the tensor cores in 3xTF32 (their sections
 //    below); conv_wgrad serves the stem's weight gradient in f32.
-//  - conv2_fwd_tc, stem_fwd_tc: the pooled forward for bf16 on the tensor
-//    cores. conv_fwd serves f32, the raw mode (K3) off K3's geometry
-//    included (client_stem_raw.cu's kernels take K3's own).
+//  - client_stem_raw.cu's kernels take K3's own geometry.
 //
-// What bounds the CUDA-core kernels: at the north-star shapes (100 clients
-// x 32 samples per step) conv2's forward is 2*9*32*64*196 = 7.2 MFLOP per
-// sample (the pooled form evaluates each of the 14x14 positions once),
-// 23 GFLOP per step; the bytes it must move are ~80 MB. The kernels run f32
-// FMA on the CUDA cores with both operands read from shared memory: two
-// shared-memory words per FMA, so shared-memory bandwidth (~7e12 words/s
-// over the card) bounds them at ~3 ms per conv2 pass, far above the HBM and
-// tensor-core floors.
-// Design: one block per (client, sample) for the forward, with the
-// client's weights (conv2: 72 KB in f32) and the sample (conv2: 25 KB)
-// staged once in shared memory; one block per (client, output channel) for
-// the weight gradient, whose threads split the weights and the batch and
-// add their partial sums in a fixed order.
+// What bounds the CUDA-core kernels: they run f32 FMA with both operands
+// read from shared memory, two shared-memory words per FMA, so
+// shared-memory bandwidth (~7e12 words/s over the card) bounds them, far
+// above the HBM and tensor-core floors. Design: one block per (client,
+// sample) for conv_fwd, with the client's weights and the sample staged
+// once in shared memory; one block per (client, output channel) for the
+// weight gradient, whose threads split the weights and the batch and add
+// their partial sums in a fixed order.
 
 #include <cooperative_groups.h>
 
+#include <climits>
 #include <cmath>
 #include <type_traits>
 
@@ -65,8 +64,7 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-conv_fwd_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
-                ConvGeom g) {
+conv_fwd_kernel(MftView x, MftView w, MftView out, ConvGeom g) {
   extern __shared__ float smem[];
   const int n = blockIdx.x;
   const int c = blockIdx.y;
@@ -80,55 +78,35 @@ conv_fwd_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
     r /= g.cin;
     const int kw = r % g.k;
     const int kh = r / g.k;
-    ws[i] = mft_round(mft_ld(w, mft_off(w, c, co, ci, kh, kw)), g.cdt);
+    ws[i] = mft_ld(w, mft_off(w, c, co, ci, kh, kw));
   }
   const int nx = g.h * g.w * g.cin;
   for (int i = threadIdx.x; i < nx; i += blockDim.x) {
     const int ci = i % g.cin;
     const int r = i / g.cin;
-    xs[i] = mft_round(mft_ld(x, mft_off(x, c, n, ci, r / g.w, r % g.w)),
-                      g.cdt);
+    xs[i] = mft_ld(x, mft_off(x, c, n, ci, r / g.w, r % g.w));
   }
   __syncthreads();
 
-  const int ph = g.pool ? g.oh / 2 : g.oh;
-  const int pw = g.pool ? g.ow / 2 : g.ow;
-  const int npos = g.pool ? 4 : 1;
-  const int nout = ph * pw * g.cout;
+  const int nout = g.oh * g.ow * g.cout;
   for (int o = threadIdx.x; o < nout; o += blockDim.x) {
     const int co = o % g.cout;
     const int r = o / g.cout;
-    const int oj = r % pw;
-    const int oi = r / pw;
-    float best = 0.f;
-    int besti = 0;
-    for (int q = 0; q < npos; ++q) {
-      const int oy = g.pool ? 2 * oi + (q >> 1) : oi;
-      const int ox = g.pool ? 2 * oj + (q & 1) : oj;
-      float acc = 0.f;
-      for (int kh = 0; kh < g.k; ++kh) {
-        const int iy = oy * g.stride - g.pad + kh;
-        if (iy < 0 || iy >= g.h) continue;
-        for (int kw = 0; kw < g.k; ++kw) {
-          const int ix = ox * g.stride - g.pad + kw;
-          if (ix < 0 || ix >= g.w) continue;
-          const float* xp = xs + (iy * g.w + ix) * g.cin;
-          const float* wp = ws + (kh * g.k + kw) * g.cin * g.cout + co;
-          for (int ci = 0; ci < g.cin; ++ci) acc += xp[ci] * wp[ci * g.cout];
-        }
-      }
-      if (q == 0 || acc > best) {  // ties: the first in (di, dj) order
-        best = acc;
-        besti = q;
+    const int ox = r % g.ow;
+    const int oy = r / g.ow;
+    float acc = 0.f;
+    for (int kh = 0; kh < g.k; ++kh) {
+      const int iy = oy * g.stride - g.pad + kh;
+      if (iy < 0 || iy >= g.h) continue;
+      for (int kw = 0; kw < g.k; ++kw) {
+        const int ix = ox * g.stride - g.pad + kw;
+        if (ix < 0 || ix >= g.w) continue;
+        const float* xp = xs + (iy * g.w + ix) * g.cin;
+        const float* wp = ws + (kh * g.k + kw) * g.cin * g.cout + co;
+        for (int ci = 0; ci < g.cin; ++ci) acc += xp[ci] * wp[ci * g.cout];
       }
     }
-    float v = best;
-    if (g.pool) {
-      v = fmaxf(v + mft_round(mft_ld(b, mft_off(b, c, 0, co, 0, 0)), g.cdt),
-                0.f);
-      mft_st(arg, mft_off(arg, c, n, co, oi, oj), static_cast<float>(besti));
-    }
-    mft_st(out, mft_off(out, c, n, co, oi, oj), v);
+    mft_st(out, mft_off(out, c, n, co, oy, ox), acc);
   }
 }
 
@@ -1386,9 +1364,9 @@ conv2_dgrad_tc_kernel(MftView dp, MftView h, MftView arg, MftView w,
 // counterpart of forward_impl's stem and conv2 GEMMs (fused_train.py:
 // 361-403, through kdot3d, fused_kernel.py:137-159). Each is an implicit
 // GEMM on mma.sync.m16n8k16 (bf16 operands, f32 sums) with the pooled
-// epilogue of conv_fwd_kernel: the max over each 2 x 2 window's four f32
-// sums, the first maximum in (di, dj) order winning, then the bias rounded
-// to bf16, relu, one rounding to bf16 on the store and the argmax byte.
+// epilogue: the max over each 2 x 2 window's four f32 sums, the first
+// maximum in (di, dj) order winning, then the bias rounded to bf16, relu,
+// one rounding to bf16 on the store and the argmax byte.
 //  - conv2_fwd_tc: Z[m, co] = sum over (kh, kw, ci) of X[(oy + kh - 1,
 //    ox + kw - 1), ci] * W[co, ci, kh, kw], M = 196 (-> 208) positions, N =
 //    64, K = 288 per sample. One block per (kFwSamples samples, client)
@@ -1766,6 +1744,531 @@ stem_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
   }
 }
 
+// ------------------------------------------------- conv2's forward, f32
+//
+// conv2_fwd_tf32: conv2_fwd_tc's implicit GEMM in f32, on mma.sync.m16n8k8
+// TF32 in 3xTF32 as conv2_dgrad_tf32 forms its products. It replaces, in
+// f32, conv2 with its bias, relu and 2 x 2 pool in forward_impl
+// (multimodal_fl_security_tpu/ops/fused_train.py:383-401, through kdot3d,
+// fused_kernel.py:136-139, whose f32 dots take f32 sums) inside
+// fused_local_train (K4): Z[m, co] = sum over (kh, kw, ci) of
+// X[(oy + kh - 1, ox + kw - 1), ci] W[co, ci, kh, kw]; per sample N = 64,
+// K = 288, and M = 224 positions m = oy * 16 + ox on the halo's 16-wide
+// rows (ox = 14, 15 are computed and dropped: 14 m16 tiles).
+//  - Both operands have k = ci contiguous: A is the rows [halo pixel][ci]
+//    of the zero-bordered input tile shifted by the tap (position m at tap
+//    (kh, kw) reads pixel m + 16 kh + kw, so a tile's eight-row matrices
+//    never straddle a halo row), B the weights staged [tap][co][ci]. Plain
+//    ldmatrix gives lane l word l % 4 of row l / 4 of an 8 x 16-byte
+//    matrix: the TF32 fragment of a [row][k] tile for A and of an [n][k]
+//    tile for B.
+//  - The budget: W's hi and lo (2 x 81 KB, rows padded to 36 words) stay
+//    resident while a block runs its samples; a whole 32-channel input
+//    tile as hi and lo (2 x 37 KB) would take the block over the 227 KB it
+//    may use. So the tile holds one 16-channel half (2 x 20 KB, rows padded
+//    to 20 words) and a sample is two passes over K, ci in [0, 16) and then
+//    [16, 32), its sums kept in registers between them. Beside it, a 12 KB
+//    buffer receives the next pass's half as it is (NHWC f32, by cp.async)
+//    while the tensor cores run; once both passes are read, the f32 sums go
+//    through a [co][m] tile (29 KB) laid over the input tile into the
+//    pooled epilogue, 32 output channels at a time. 215 KB: one block an
+//    SM.
+//  - Each operand is split into hi = tf32(a) and lo = tf32(a - hi)
+//    (mft_tf32_rne) once, as it is staged; lo hi + hi lo + hi hi in f32
+//    sums. A fresh accumulator takes each (channel half, tap) (2 k8 steps,
+//    6 mma an n8 tile) and is added to the sums in f32: the tensor cores'
+//    sums do not round to nearest.
+//  - Warp w: m16 tiles w and w + 8 (warps 6 and 7 one), all 64 channels,
+//    sharing each B fragment between its two tiles.
+//  - One block an SM, each running a contiguous range of the C x B
+//    (client, sample) pairs in order and staging a client's weights when
+//    its range reaches it: the last wave is as full as the others. Every
+//    sum runs in a fixed order, with no atomics: two calls are bitwise
+//    equal.
+// What bounds it: 23.1 GFLOP over 100 clients x 32 samples, 69 GFLOP of
+// TF32 mma in 3xTF32 (0.140 ms at 495 TFLOP/s), against ~138 MB of
+// operands and outputs (0.041 ms at 3.35 TB/s): operations. Each k8 step
+// of a two-tile warp reads its fragments with 12 ldmatrix (6 KB) for 48
+// mma, so shared memory (128 B a clock an SM) is about as near its limit
+// as the tensor cores.
+
+constexpr int kFtHalf = kC2In / 2;      // 16 input channels a pass
+constexpr int kFtXRow = kFtHalf + 4;    // 20 floats: [halo pixel][ci] rows
+constexpr int kFtXPix = kHaloPix + 4;   // m + 16 kh + kw reaches pixel 257
+constexpr int kFtWRow = kC2In + 4;      // 36 floats: [tap][co][ci] rows
+constexpr int kFtTiles = kTfZPos / 16;  // 14 m16 tiles of positions
+constexpr int kFtPoolCo = kC2Out / 2;   // output channels pooled at a time
+constexpr size_t kFtWBytes = sizeof(float) * 2 * 9 * kC2Out * kFtWRow;
+constexpr size_t kFtXBytes = sizeof(float) * 2 * kFtXPix * kFtXRow;
+constexpr size_t kFtRawBytes = sizeof(float) * kC2Pos * kFtHalf;
+constexpr size_t kFtSmem =
+    kFtWBytes + sizeof(float) * kC2Out + kFtXBytes + kFtRawBytes;
+
+static_assert(kFtSmem <= kMftMaxSmem, "one block an SM");
+static_assert(sizeof(float) * kFtPoolCo * kTfZRow <= kFtXBytes,
+              "the sums' tile lies within the input tile");
+static_assert(kFtTiles <= 2 * kTcWarps, "two m16 tiles a warp at most");
+
+// One channel half of conv2's input of one sample, split, into the
+// zero-bordered tiles xh, xl [halo pixel][ci of the half]. Dense: an NHWC
+// f32 slab [14][14][32], 16-byte aligned, as the stem's f32 forward writes
+// it; load copies a thread's four 16-byte chunks into raw [pixel][ci of
+// the half] by cp.async, and store splits the same chunks (no barrier
+// between: each thread waits for its own copies). Otherwise: any strides
+// and types, one element at a time.
+template <bool kDense>
+struct C2HalfInputF32;
+
+template <>
+struct C2HalfInputF32<true> {
+  static constexpr int kChunks = kC2Pos * kFtHalf / 4;  // 784
+  static constexpr int kLoads = (kChunks + kTcThreads - 1) / kTcThreads;
+  float* raw;
+
+  __device__ __forceinline__ void load(const MftView& x, int c, int n,
+                                       int half) {
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = threadIdx.x + k * kTcThreads;
+      if (i < kChunks) {  // pixel i / 4, channels half * 16 + 4 (i % 4)
+        mft_cp_async16(mft_smem_addr(raw + 4 * i),
+                       mft_slab<float>(x, c, n) + (i / 4) * kC2In +
+                           half * kFtHalf + 4 * (i % 4),
+                       16);
+      }
+    }
+    mft_cp_async_commit();
+  }
+
+  __device__ __forceinline__ void store(float* xh, float* xl) const {
+    mft_cp_async_wait<0>();
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = threadIdx.x + k * kTcThreads;
+      if (i < kChunks) {
+        const int p = i / 4;
+        const int at =
+            ((p / kC2Hw + 1) * kHaloW + p % kC2Hw + 1) * kFtXRow + 4 * (i % 4);
+        const float4 v = *reinterpret_cast<const float4*>(raw + 4 * i);
+        float hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float a = mft_f4_at(v, e);
+          hi[e] = mft_tf32_rne(a);
+          lo[e] = mft_tf32_rne(a - hi[e]);
+        }
+        *reinterpret_cast<float4*>(xh + at) =
+            make_float4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<float4*>(xl + at) =
+            make_float4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+  }
+};
+
+template <>
+struct C2HalfInputF32<false> {
+  float* raw;  // unused
+  const MftView* x_;
+  int c_, n_, half_;
+
+  __device__ __forceinline__ void load(const MftView& x, int c, int n,
+                                       int half) {
+    x_ = &x, c_ = c, n_ = n, half_ = half;
+  }
+
+  __device__ __forceinline__ void store(float* xh, float* xl) const {
+    for (int i = threadIdx.x; i < kC2Pos * kFtHalf; i += kTcThreads) {
+      const int ci = i % kFtHalf, p = i / kFtHalf;
+      const int iy = p / kC2Hw, ix = p % kC2Hw;
+      const float a =
+          mft_ld(*x_, mft_off(*x_, c_, n_, half_ * kFtHalf + ci, iy, ix));
+      const float hi = mft_tf32_rne(a);
+      const int at = ((iy + 1) * kHaloW + ix + 1) * kFtXRow + ci;
+      xh[at] = hi;
+      xl[at] = mft_tf32_rne(a - hi);
+    }
+  }
+};
+
+// One pass of conv2_fwd_tf32 over K for a warp's kTiles m16 tiles: the nine
+// taps of the staged channel half, each tap's 2 k8 steps into a fresh
+// accumulator added to acc in f32. The fresh accumulator is taken 16
+// output channels at a time, so that it holds 16 words, not 64: the order
+// of each output's sums is the same. a_hi, a_lo: this lane's ldmatrix
+// addresses in the input tile at tap (0, 0) of its first tile (the second
+// is 8 tiles, 128 pixels, on); b_hi, b_lo: its addresses in W's tap 0 at
+// the pass's channels.
+template <int kTiles>
+__device__ __forceinline__ void c2_fwd_pass(float (&acc)[2][8][4],
+                                            uint32_t a_hi, uint32_t a_lo,
+                                            uint32_t b_hi, uint32_t b_lo) {
+  constexpr int kSteps = kFtHalf / 8;  // k8 steps of a tap
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const uint32_t a_tap =
+        ((tap / 3) * kHaloW + tap % 3) * kFtXRow * sizeof(float);
+    const uint32_t b_tap = tap * kC2Out * kFtWRow * sizeof(float);
+    uint32_t ah[kSteps][kTiles][4], al[kSteps][kTiles][4];
+#pragma unroll
+    for (int kc = 0; kc < kSteps; ++kc) {
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        const uint32_t off =
+            a_tap + (j * 8 * 16 * kFtXRow + kc * 8) * sizeof(float);
+        ldsm4(ah[kc][j], a_hi + off);
+        ldsm4(al[kc][j], a_lo + off);
+      }
+    }
+#pragma unroll
+    for (int ng = 0; ng < kC2Out / 16; ++ng) {
+      float part[kTiles][2][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < kSteps; ++kc) {
+        // co 16 ng + [0, 16): b0, b1 of the n8 tile 2 ng, then 2 ng + 1.
+        const uint32_t off =
+            b_tap + (ng * 16 * kFtWRow + kc * 8) * sizeof(float);
+        uint32_t bh[4], bl[4];
+        ldsm4(bh, b_hi + off);
+        ldsm4(bl, b_lo + off);
+#pragma unroll
+        for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            float(&d)[4] = part[j][s];
+            mma1688_tf32(d, al[kc][j], bh[2 * s], bh[2 * s + 1]);  // small
+            mma1688_tf32(d, ah[kc][j], bl[2 * s], bl[2 * s + 1]);  // first
+            mma1688_tf32(d, ah[kc][j], bh[2 * s], bh[2 * s + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][2 * ng + s][e] += part[j][s][e];
+        }
+      }
+    }
+  }
+}
+
+// conv2_fwd_tf32's pooled epilogue for pair i = co * 49 + p of the f32
+// sums zf [co][m], m = oy * 16 + ox (co counted from the tile's first
+// channel, as bs is): the window's value through the f32 bias and relu, and
+// its argmax in q.
+__device__ __forceinline__ float c2_pool_f32(const float* zf, const float* bs,
+                                             int i, int& q) {
+  const int co = i / kC2Pooled, p = i % kC2Pooled;
+  const float* z =
+      zf + co * kTfZRow + 2 * (p / kC2Pw) * kHaloW + 2 * (p % kC2Pw);
+  const float v[4] = {z[0], z[1], z[kHaloW], z[kHaloW + 1]};
+  float best = v[0];
+  q = 0;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (v[k] > best) {  // ties: the first in (di, dj) order
+      best = v[k];
+      q = k;
+    }
+  }
+  return fmaxf(best + bs[co], 0.f);
+}
+
+// Block b runs (client, sample) pairs [b S / G, (b + 1) S / G) of the S =
+// C x B, G = gridDim.x, sample-fastest. Dense x: cp.async into the raw
+// buffer while the tensor cores run (C2HalfInputF32). Dense out and arg:
+// NCHW slabs [64][7][7] (f32, bytes; 16-byte aligned), four pairs a thread
+// written as one 16-byte and one 4-byte store; otherwise any strides and
+// types, one element at a time.
+template <bool kDenseX, bool kDenseOut>
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv2_fwd_tf32_kernel(MftView x, MftView w, MftView b, MftView out,
+                      MftView arg, int batch, int samples) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* wh = reinterpret_cast<float*>(smem_raw);  // [tap][co][ci]
+  float* wl = wh + 9 * kC2Out * kFtWRow;
+  float* bs = wl + 9 * kC2Out * kFtWRow;  // the bias
+  float* xh = bs + kC2Out;                // [halo pixel][ci of the pass]
+  float* xl = xh + kFtXPix * kFtXRow;
+  float* zf = xh;  // [co][m], 32 channels' sums, over xh, xl once read
+  const int s0 = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                  samples / gridDim.x);
+  const int s1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) *
+                                  samples / gridDim.x);
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
+  const int gq = lane >> 2, tq = lane & 3;  // the accumulators' row, pair
+  // A (ldmatrix x4): matrix li is rows 8 (li & 1) + [0, 8) of a tile, k
+  // 4 (li >> 1) + [0, 4); this lane's row of tile `warp` is position (and,
+  // at tap (0, 0), pixel) 16 warp + 8 (li & 1) + lr.
+  const bool two = warp + kTcWarps < kFtTiles;  // warp-uniform
+  const uint32_t a_row =
+      ((warp * 16 + (li & 1) * 8 + lr) * kFtXRow + (li >> 1) * 4) *
+      sizeof(float);
+  const uint32_t a_hi = mft_smem_addr(xh) + a_row;
+  const uint32_t a_lo = mft_smem_addr(xl) + a_row;
+  // B (ldmatrix x4): matrix li is co 8 (li >> 1) + [0, 8), k 4 (li & 1)
+  // + [0, 4).
+  const uint32_t b_row =
+      (((li >> 1) * 8 + lr) * kFtWRow + (li & 1) * 4) * sizeof(float);
+  const uint32_t b_hi = mft_smem_addr(wh) + b_row;
+  const uint32_t b_lo = mft_smem_addr(wl) + b_row;
+  C2HalfInputF32<kDenseX> xr;
+  xr.raw = xl + kFtXPix * kFtXRow;  // [pixel][ci], the next pass's as read
+  if (s0 < s1) xr.load(x, s0 / batch, s0 % batch, 0);
+  int staged = -1;  // the client whose weights are in wh, wl and bs
+  for (int s = s0; s < s1; ++s) {
+    const int c = s / batch, n = s % batch;
+    float acc[2][8][4] = {};
+    for (int half = 0; half < 2; ++half) {
+      __syncthreads();  // the last pass's tiles, or the last sample's sums,
+                        // read
+      if (half == 0) {
+        if (c != staged) {
+          // Thread i stages the 9 taps of (co, ci) = (i / 32, i % 32),
+          // adjacent in w's own order; a warp's lanes write adjacent ci.
+          for (int i = t; i < kC2Out * kC2In; i += kTcThreads) {
+            const int co = i / kC2In, ci = i % kC2In;
+#pragma unroll
+            for (int tap = 0; tap < 9; ++tap) {
+              const float a =
+                  mft_ld(w, mft_off(w, c, co, ci, tap / 3, tap % 3));
+              const float hi = mft_tf32_rne(a);
+              const int at = (tap * kC2Out + co) * kFtWRow + ci;
+              wh[at] = hi;
+              wl[at] = mft_tf32_rne(a - hi);
+            }
+          }
+          if (t < kC2Out) bs[t] = mft_ld(b, mft_off(b, c, 0, t, 0, 0));
+          staged = c;
+        }
+        // The sums overwrote the border: zero its 60 pixels again.
+        if (t < 60 * kFtHalf / 4) {
+          const int bp = t / 4;
+          const int pix = bp < 16   ? bp
+                          : bp < 32 ? (kHaloW - 1) * kHaloW + bp - 16
+                          : bp < 46 ? (bp - 31) * kHaloW
+                                    : (bp - 45) * kHaloW + kHaloW - 1;
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(xh + pix * kFtXRow + 4 * (t % 4)) = z;
+          *reinterpret_cast<float4*>(xl + pix * kFtXRow + 4 * (t % 4)) = z;
+        }
+      }
+      xr.store(xh, xl);
+      __syncthreads();
+      if (half == 0) {
+        xr.load(x, c, n, 1);
+      } else if (s + 1 < s1) {
+        xr.load(x, (s + 1) / batch, (s + 1) % batch, 0);
+      }
+      const uint32_t b_half = half * kFtHalf * sizeof(float);
+      if (two) {
+        c2_fwd_pass<2>(acc, a_hi, a_lo, b_hi + b_half, b_lo + b_half);
+      } else {
+        c2_fwd_pass<1>(acc, a_hi, a_lo, b_hi + b_half, b_lo + b_half);
+      }
+    }
+    // The pooled epilogue, 32 output channels at a time.
+#pragma unroll
+    for (int ch = 0; ch < kC2Out / kFtPoolCo; ++ch) {
+      __syncthreads();  // every warp has read the tiles, or the last sums
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j == 1 && !two) break;
+#pragma unroll
+        for (int nt = 0; nt < kFtPoolCo / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = (warp + j * kTcWarps) * 16 + gq + (e >> 1) * 8;
+            zf[(nt * 8 + 2 * tq + (e & 1)) * kTfZRow + m] =
+                acc[j][ch * kFtPoolCo / 8 + nt][e];
+          }
+        }
+      }
+      __syncthreads();
+      constexpr int kPairs = kFtPoolCo * kC2Pooled;  // 1568
+      const float* bh = bs + ch * kFtPoolCo;
+      if (kDenseOut) {
+        // Pairs 4 (t + 256 k) .. + 3 of the 32 channels: one 16-byte and
+        // one 4-byte store each.
+#pragma unroll
+        for (int k = 0; k < (kPairs / 4 + kTcThreads - 1) / kTcThreads; ++k) {
+          const int i0 = 4 * (t + k * kTcThreads);
+          if (i0 < kPairs) {
+            float v[4];
+            int q[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              v[e] = c2_pool_f32(zf, bh, i0 + e, q[e]);
+            }
+            const int at = ch * kPairs + i0;
+            *reinterpret_cast<float4*>(mft_slab_w<float>(out, c, n) + at) =
+                make_float4(v[0], v[1], v[2], v[3]);
+            *reinterpret_cast<uint32_t*>(mft_slab_w<uint8_t>(arg, c, n) +
+                                         at) =
+                static_cast<uint32_t>(q[0]) |
+                static_cast<uint32_t>(q[1]) << 8 |
+                static_cast<uint32_t>(q[2]) << 16 |
+                static_cast<uint32_t>(q[3]) << 24;
+          }
+        }
+      } else {
+        for (int i = t; i < kPairs; i += kTcThreads) {
+          int q;
+          const float v = c2_pool_f32(zf, bh, i, q);
+          const int co = ch * kFtPoolCo + i / kC2Pooled, p = i % kC2Pooled;
+          mft_st(out, mft_off(out, c, n, co, p / kC2Pw, p % kC2Pw), v);
+          mft_st(arg, mft_off(arg, c, n, co, p / kC2Pw, p % kC2Pw),
+                 static_cast<float>(q));
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------ the stem's forward, f32
+//
+// stem_fwd_f32: the stem's pooled forward in f32, exact f32 FMA on the
+// CUDA cores. It replaces, in f32, forward_impl's stem
+// (multimodal_fl_security_tpu/ops/fused_train.py:361-381: ConvPoolFused,
+// the 4x4 stride-2 conv on the embedded kernel w4, the max over its four
+// channel groups, bias and relu, through kdot3d's f32 sums) inside
+// fused_local_train (K4). At K = 9 cin the tensor cores buy nothing: K
+// pads to a k8 step and each product takes three mma in 3xTF32
+// (stem_fwd_tc runs at 9x its bound in bf16).
+//  - Thread t of a block: window t / 4 of the block's 64 at a time (the
+//    windows of a client in (sample, row, column) order) and output
+//    channels c0 + [0, 4) and 16 + c0 + [0, 4), c0 = 4 (t % 4). Per input
+//    channel it holds the window's 4 x 4 patch in registers (0 outside the
+//    image; the window's four threads load the same words) and runs its 4
+//    positions x 8 channels x 9 taps: each tap's 8 weights are two float4
+//    loads from shared memory (one address for eight lanes), 32 FMA. The
+//    sums run over (ci, kh, kw) in that order. The next patch's loads are
+//    in flight while this one's FMA run.
+//  - The max over the four positions (the first maximum in (di, dj)
+//    order), the bias and relu in registers. NHWC maps (the main path's):
+//    each of a thread's two 16-byte stores of the f32 map and two 4-byte
+//    argmax stores writes, with the window's other three threads, a
+//    contiguous run of the window's pixel; otherwise any strides and
+//    types, one element at a time.
+// What bounds it: 1.44 GFLOP over 100 clients x 32 samples at cin = 1
+// (0.022 ms at the f32 CUDA-core rate) against ~110 MB (10 MB of images in,
+// 80 MB of maps and 20 MB of argmax out: 0.033 ms at 3.35 TB/s): bytes.
+
+constexpr int kSfWins = kTcThreads / 4;  // windows a block runs at once
+constexpr int kSf32Chunks = 4;           // kSfWins-window chunks a block runs
+
+template <bool kDenseOut>
+__global__ void __launch_bounds__(kTcThreads, 2)
+stem_fwd_f32_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
+                    ConvGeom g) {
+  __shared__ __align__(16) float ws[8 * 9 * kStemOut];  // [ci][tap][co]
+  __shared__ __align__(16) float bs[kStemOut];
+  const int c = blockIdx.y;
+  const int t = threadIdx.x;
+  for (int i = t; i < 9 * g.cin * kStemOut; i += kTcThreads) {
+    const int co = i % kStemOut, j = i / kStemOut;  // j = ci * 9 + tap
+    const int ci = j / 9, tap = j % 9;
+    ws[i] = mft_ld(w, mft_off(w, c, co, ci, tap / 3, tap % 3));
+  }
+  if (t < kStemOut) bs[t] = mft_ld(b, mft_off(b, c, 0, t, 0, 0));
+  const int c0 = 4 * (t % 4);  // channels c0 + [0, 4), 16 + c0 + [0, 4)
+  const int pw = g.ow / 2;
+  const int per = (g.oh / 2) * pw;
+  const int total = g.batch * per;
+  const int w0 = blockIdx.x * kSf32Chunks * kSfWins + t / 4;
+  // One input channel's patch of window wi: rows 2 oi - 1 + r, columns
+  // 2 oj - 1 + u.
+  float v[4][4];
+  auto load = [&](int wi, int ci) {
+    const int n = wi / per, p = wi % per;
+    const int oi = p / pw, oj = p % pw;
+    const float* xs = mft_slab<float>(x, c, n) + ci * x.st[2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int iy = 2 * oi - 1 + r;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int ix = 2 * oj - 1 + u;
+        v[r][u] = iy >= 0 && iy < g.h && ix >= 0 && ix < g.w
+                      ? xs[iy * x.st[3] + ix * x.st[4]]
+                      : 0.f;
+      }
+    }
+  };
+  if (w0 < total) load(w0, 0);
+  __syncthreads();  // the weights and bias are staged
+  const float4* wv = reinterpret_cast<const float4*>(ws) + c0 / 4;
+  for (int k = 0; k < kSf32Chunks; ++k) {
+    const int wi = w0 + k * kSfWins;
+    if (wi >= total) return;
+    float acc[4][8] = {};
+    for (int ci = 0; ci < g.cin; ++ci) {
+      float cur[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) cur[r][u] = v[r][u];
+      }
+      if (ci + 1 < g.cin) {
+        load(wi, ci + 1);
+      } else if (k + 1 < kSf32Chunks && wi + kSfWins < total) {
+        load(wi + kSfWins, 0);
+      }
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float4 wa = wv[(ci * 9 + tap) * (kStemOut / 4)];
+        const float4 wb = wv[(ci * 9 + tap) * (kStemOut / 4) + 4];
+        const float wt[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // position (di, dj) = (q / 2, q % 2)
+          const float xv = cur[q / 2 + tap / 3][q % 2 + tap % 3];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[q][e] = fmaf(xv, wt[e], acc[q][e]);
+        }
+      }
+    }
+    float val[8];
+    uint32_t qw[2] = {0u, 0u};  // the argmax bytes of c0 + [0, 4), 16 + ...
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float best = acc[0][e];
+      uint32_t q = 0;
+#pragma unroll
+      for (int qq = 1; qq < 4; ++qq) {
+        if (acc[qq][e] > best) {  // ties: the first in (di, dj) order
+          best = acc[qq][e];
+          q = qq;
+        }
+      }
+      val[e] = fmaxf(best + bs[c0 + (e / 4) * 16 + e % 4], 0.f);
+      qw[e / 4] |= q << (8 * (e % 4));
+    }
+    const int n = wi / per, p = wi % per;
+    if (kDenseOut) {
+      float* o = mft_slab_w<float>(out, c, n) + p * kStemOut + c0;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(val[0], val[1], val[2], val[3]);
+      *reinterpret_cast<float4*>(o + 16) =
+          make_float4(val[4], val[5], val[6], val[7]);
+      uint8_t* a = mft_slab_w<uint8_t>(arg, c, n) + p * kStemOut + c0;
+      *reinterpret_cast<uint32_t*>(a) = qw[0];
+      *reinterpret_cast<uint32_t*>(a + 16) = qw[1];
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int co = c0 + (e / 4) * 16 + e % 4;
+        mft_st(out, mft_off(out, c, n, co, p / pw, p % pw), val[e]);
+        mft_st(arg, mft_off(arg, c, n, co, p / pw, p % pw),
+               static_cast<float>(qw[e / 4] >> (8 * (e % 4)) & 0xffu));
+      }
+    }
+  }
+}
+
 // What the tensor-core kernels take: bf16, a pooled 3 x 3 SAME convolution
 // at stride 1 with conv2's shape or, given its f32 input x (weight gradient
 // only), a stem's (1 <= cin <= 8 -> 32: 9 cin columns and the ones column
@@ -1895,19 +2398,28 @@ bool conv2_tf32_takes(const ConvGeom& g) {
          g.w == kC2Hw && g.oh == kC2Hw && g.ow == kC2Hw;
 }
 
+// What stem_fwd_f32 takes: f32 compute, a pooled 3 x 3 SAME convolution at
+// stride 1 with a stem's shape (1 <= cin <= 8 -> 32 channels, even sizes),
+// its input x in f32; the other operands of any strides and types.
+bool stem_f32_takes(const ConvGeom& g, const MftView& x) {
+  return g.cdt == kF32 && g.k == 3 && g.stride == 1 && g.pad == 1 && g.pool &&
+         g.oh == g.h && g.ow == g.w && g.h % 2 == 0 && g.w % 2 == 0 &&
+         g.cout == kStemOut && g.cin >= 1 && g.cin <= 8 && x.dtype == kF32;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Forward: x (client, sample, channel, row, col), w (client, co, ci, kh, kw),
-// b (client, -, co) read only when pooling; out and arg (client, sample, co,
-// row, col) of the pooled (or raw) output.
-int mft_conv_fwd(const MftView* x, const MftView* w, const MftView* b,
-                 const MftView* out, const MftView* arg,
+// The raw forward in f32: x (client, sample, channel, row, col), w (client,
+// co, ci, kh, kw); out (client, sample, co, row, col). A pooled or bf16 call
+// is refused: the pooled forward runs conv2_fwd_tf32 and stem_fwd_f32 in
+// f32 (mft_conv2_fwd_tf32, mft_stem_fwd_f32).
+int mft_conv_fwd(const MftView* x, const MftView* w, const MftView* out,
                  const MftConvArgs* a, int device, void* stream) {
   const ConvGeom& g = a->g;
   if (a->clients <= 0 || g.batch <= 0 || g.cin <= 0 || g.cout <= 0 ||
-      (g.pool && (g.oh % 2 || g.ow % 2))) {
+      g.pool || g.cdt != kF32) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(float) *
@@ -1919,8 +2431,7 @@ int mft_conv_fwd(const MftView* x, const MftView* w, const MftView* b,
   err = mft_smem_optin(conv_fwd_kernel, smem);
   if (err != cudaSuccess) return err;
   conv_fwd_kernel<<<dim3(g.batch, a->clients), kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(*x, *w, *b, *out,
-                                                         *arg, g);
+                    static_cast<cudaStream_t>(stream)>>>(*x, *w, *out, g);
   return cudaGetLastError();
 }
 
@@ -2112,6 +2623,79 @@ int mft_conv_fwd_tc(const MftView* x, const MftView* w, const MftView* b,
                                  : conv2_fwd_tc_kernel<false, false>);
   const dim3 grid((g.batch + kFwSamples - 1) / kFwSamples, a->clients);
   return launch_tc(kernel, grid, smem, st, g.batch, x, w, b, out, arg);
+}
+
+// The pooled forward for the compute dtype f32: the same arguments as
+// mft_conv_fwd_tc. conv2's geometry runs conv2_fwd_tf32 (3xTF32), a stem's
+// stem_fwd_f32 (CUDA cores); what mft_conv2_fwd_tf32_takes or
+// mft_stem_fwd_f32_takes refuses is refused, never handed to another
+// kernel.
+int mft_conv2_fwd_tf32_takes(const MftConvArgs* a) {
+  return conv2_tf32_takes(a->g);
+}
+
+int mft_conv2_fwd_tf32(const MftView* x, const MftView* w, const MftView* b,
+                       const MftView* out, const MftView* arg,
+                       const MftConvArgs* a, int device, void* stream) {
+  const ConvGeom& g = a->g;
+  const long long samples = static_cast<long long>(a->clients) * g.batch;
+  if (a->clients <= 0 || g.batch <= 0 || samples > INT_MAX ||
+      !conv2_tf32_takes(g)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // The main path's layouts: the input NHWC and the maps NCHW, f32.
+  const bool dx = dense_slab(*x, kF32, 1, kC2Hw * kC2In, kC2In);
+  const bool dout = dense_slab(*out, kF32, kC2Pooled, kC2Pw, 1) &&
+                    dense_slab(*arg, kU8, kC2Pooled, kC2Pw, 1);
+  const auto kernel = dx ? (dout ? conv2_fwd_tf32_kernel<true, true>
+                                 : conv2_fwd_tf32_kernel<true, false>)
+                         : (dout ? conv2_fwd_tf32_kernel<false, true>
+                                 : conv2_fwd_tf32_kernel<false, false>);
+  err = mft_smem_optin(kernel, kFtSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = static_cast<int>(samples < sms ? samples : sms);
+  kernel<<<blocks, kTcThreads, kFtSmem, static_cast<cudaStream_t>(stream)>>>(
+      *x, *w, *b, *out, *arg, g.batch, static_cast<int>(samples));
+  return cudaGetLastError();
+}
+
+int mft_stem_fwd_f32_takes(const MftConvArgs* a, const MftView* x) {
+  return stem_f32_takes(a->g, *x);
+}
+
+int mft_stem_fwd_f32(const MftView* x, const MftView* w, const MftView* b,
+                     const MftView* out, const MftView* arg,
+                     const MftConvArgs* a, int device, void* stream) {
+  const ConvGeom& g = a->g;
+  const long long windows =
+      static_cast<long long>(g.batch) * (g.oh / 2) * (g.ow / 2);
+  if (a->clients <= 0 || g.batch <= 0 || windows > INT_MAX ||
+      !stem_f32_takes(g, *x)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  // The main path's layout: the maps NHWC.
+  const long long pw = g.ow / 2;
+  const bool dense = dense_slab(*out, kF32, 1, pw * kStemOut, kStemOut) &&
+                     dense_slab(*arg, kU8, 1, pw * kStemOut, kStemOut);
+  const int per_block = kSf32Chunks * kSfWins;
+  const dim3 grid(static_cast<unsigned>((windows + per_block - 1) / per_block),
+                  a->clients);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dense) {
+    stem_fwd_f32_kernel<true><<<grid, kTcThreads, 0, st>>>(*x, *w, *b, *out,
+                                                           *arg, g);
+  } else {
+    stem_fwd_f32_kernel<false><<<grid, kTcThreads, 0, st>>>(*x, *w, *b, *out,
+                                                            *arg, g);
+  }
+  return cudaGetLastError();
 }
 
 const char* mft_client_conv_error_string(int err) {

@@ -73,8 +73,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("client_conv")
     p = ctypes.POINTER(MftView)
     args = ctypes.POINTER(ConvArgs)
-    for name, n_views in (("mft_conv_fwd", 5), ("mft_conv_wgrad", 6),
-                          ("mft_conv_fwd_tc", 5),
+    for name, n_views in (("mft_conv_fwd", 3), ("mft_conv_wgrad", 6),
+                          ("mft_conv_fwd_tc", 5), ("mft_conv2_fwd_tf32", 5),
+                          ("mft_stem_fwd_f32", 5),
                           ("mft_conv_wgrad_tc", 6), ("mft_conv_dgrad_tc", 5),
                           ("mft_conv2_wgrad_tf32", 6),
                           ("mft_conv2_dgrad_tf32", 5)):
@@ -86,9 +87,12 @@ def _library() -> ctypes.CDLL:
     lib.mft_conv_fwd_tc_kind.argtypes = [args, p]
     lib.mft_conv_fwd_tc_kind.restype = ctypes.c_int
     for takes in (lib.mft_conv2_wgrad_tf32_takes,
-                  lib.mft_conv2_dgrad_tf32_takes):
+                  lib.mft_conv2_dgrad_tf32_takes,
+                  lib.mft_conv2_fwd_tf32_takes):
         takes.argtypes = [args]
         takes.restype = ctypes.c_int
+    lib.mft_stem_fwd_f32_takes.argtypes = [args, p]
+    lib.mft_stem_fwd_f32_takes.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -194,12 +198,13 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     [C, C_out, C_in, K, K]. With ``pool``: then the 2x2 window max, ``b``
     [C, C_out] and relu, returning the pooled map [C, B, C_out, OH/2, OW/2]
     and its argmax (uint8, q = di*2 + dj); without: the raw output and None.
-    Outputs are in ``dtype``, stored NHWC when ``channels_last``. f32 runs
-    the CUDA-core kernel ``conv_fwd``, or ``stem_raw_tf32`` (3xTF32) raw at
-    K3's geometry; bf16 a tensor-core kernel, ``conv2_fwd_tc`` or
-    ``stem_fwd_tc`` pooled and ``stem_raw_tc`` raw (see
-    :func:`_fwd_kernel_for`). ``conv_fwd.launches`` counts the launches of
-    all five, :data:`~._launch.KERNEL_LAUNCHES` each one's."""
+    Outputs are in ``dtype``, stored NHWC when ``channels_last``. Pooled,
+    f32 runs ``conv2_fwd_tf32`` (3xTF32) or ``stem_fwd_f32`` (CUDA cores),
+    bf16 ``conv2_fwd_tc`` or ``stem_fwd_tc`` (tensor cores); raw, f32 runs
+    ``stem_raw_tf32`` (3xTF32) at K3's geometry and the CUDA-core
+    ``conv_fwd`` off it, bf16 ``stem_raw_tc`` (see :func:`_fwd_kernel_for`).
+    ``conv_fwd.launches`` counts the launches of all seven,
+    :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_fwd_plain(x, w, b, stride=stride, pad=pad, pool=pool,
                               dtype=dtype, channels_last=channels_last)
@@ -213,20 +218,18 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     shape = (x.shape[0], x.shape[1], w.shape[1], ph, pw)
     out = _alloc(shape, dtype, device, channels_last)
     arg = _alloc(shape, torch.uint8, device, channels_last) if pool else None
-    if kernel in ("stem_raw_tc", "stem_raw_tf32"):
-        lib, prefix = _stem_raw_library(), "client_stem_raw"
-        views = [xv, view(w, _WEIGHT_AXES), view(out, _IMAGE_AXES)]
-        err = getattr(lib, f"mft_{kernel}")(
-            *[ctypes.byref(v) for v in views], ctypes.byref(a), device.index,
-            stream_of(x))
-    else:
-        prefix = "client_conv"
-        views = [xv, view(w, _WEIGHT_AXES),
-                 view(b if pool else None, _BIAS_AXES),
+    prefix = "client_conv"
+    if pool:
+        views = [xv, view(w, _WEIGHT_AXES), view(b, _BIAS_AXES),
                  view(out, _IMAGE_AXES), view(arg, _IMAGE_AXES)]
-        entry = "mft_conv_fwd" if kernel == "conv_fwd" else "mft_conv_fwd_tc"
-        err = getattr(lib, entry)(*[ctypes.byref(v) for v in views],
-                                  ctypes.byref(a), device.index, stream_of(x))
+    else:
+        views = [xv, view(w, _WEIGHT_AXES), view(out, _IMAGE_AXES)]
+        if kernel != "conv_fwd":
+            lib, prefix = _stem_raw_library(), "client_stem_raw"
+    entry = "mft_conv_fwd_tc" if kernel.endswith("_fwd_tc") \
+        else f"mft_{kernel}"
+    err = getattr(lib, entry)(*[ctypes.byref(v) for v in views],
+                              ctypes.byref(a), device.index, stream_of(x))
     check(lib, err, kernel, prefix)
     count(kernel)
     conv_fwd.launches += 1
@@ -242,26 +245,25 @@ _TC_NONE, _TC_CONV2 = 0, 1
 
 def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
                     channels_last: bool) -> str:
-    """The forward kernel for ``a``. Raw (K3) at K3's geometry (4x4,
-    stride 2, pad 1, 28x28x8 -> 14x14x128, ``x`` in the compute dtype and
-    NHWC with 16-byte aligned samples, the output NHWC): ``stem_raw_tf32``
-    for f32, ``stem_raw_tc`` for bf16. Any other f32 call, pooled or raw,
-    is ``conv_fwd``'s: a route chosen here, before the launch. For bf16
-    pooled, a tensor-core kernel that takes a 3x3 SAME stride-1 geometry
-    with conv2's shape (32 -> 64 channels at 14x14), ``conv2_fwd_tc``, or a
-    stem's (1-8 -> 32 channels, ``x`` in f32), ``stem_fwd_tc``. Any other
-    bf16 call raises: it never drops to the CUDA-core kernel."""
+    """The forward kernel for ``a``, a route chosen here, before the
+    launch. Raw (K3) at K3's geometry (4x4, stride 2, pad 1, 28x28x8 ->
+    14x14x128, ``x`` in the compute dtype and NHWC with 16-byte aligned
+    samples, the output NHWC): ``stem_raw_tf32`` for f32, ``stem_raw_tc``
+    for bf16; any other raw f32 call runs the CUDA-core ``conv_fwd``.
+    Pooled, a kernel that takes a 3x3 SAME stride-1 geometry with conv2's
+    shape (32 -> 64 channels at 14x14), ``conv2_fwd_tf32`` in f32 and
+    ``conv2_fwd_tc`` in bf16, or a stem's (1-8 -> 32 channels, ``x`` in
+    f32), ``stem_fwd_f32`` and ``stem_fwd_tc``. Any other pooled call, and
+    any other raw bf16 call, raises: it never drops to another kernel."""
     g = a.g
-    if g.cdt == DTYPE_CODES[torch.float32]:
-        if not g.pool and channels_last and \
-                _stem_raw_library().mft_stem_raw_tf32_takes(
-                    ctypes.byref(a), ctypes.byref(x)):
-            return "stem_raw_tf32"
-        return "conv_fwd"
+    f32 = g.cdt == DTYPE_CODES[torch.float32]
     if not g.pool:
-        if channels_last and _stem_raw_library().mft_stem_raw_tc_takes(
+        raw = "stem_raw_tf32" if f32 else "stem_raw_tc"
+        if channels_last and getattr(_stem_raw_library(), f"mft_{raw}_takes")(
                 ctypes.byref(a), ctypes.byref(x)):
-            return "stem_raw_tc"
+            return raw
+        if f32:
+            return "conv_fwd"
         raise ValueError(
             f"conv_fwd raw in bf16 runs on the tensor-core kernel "
             f"stem_raw_tc, which takes K3's geometry only: 4x4, stride 2, "
@@ -270,6 +272,17 @@ def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
             f"{g.h}x{g.w}, k {g.k}, stride {g.stride}, pad {g.pad}, x dtype "
             f"code {x.dtype}, x strides {tuple(x.st)}, channels_last "
             f"{channels_last}")
+    if f32:
+        if lib.mft_conv2_fwd_tf32_takes(ctypes.byref(a)):
+            return "conv2_fwd_tf32"
+        if lib.mft_stem_fwd_f32_takes(ctypes.byref(a), ctypes.byref(x)):
+            return "stem_fwd_f32"
+        raise ValueError(
+            f"conv_fwd pooled in f32 runs conv2_fwd_tf32, which takes a 3x3 "
+            f"SAME stride-1 conv2 (32 -> 64 at 14x14), or stem_fwd_f32, "
+            f"which takes a 3x3 SAME stride-1 stem (1-8 -> 32 at even sizes, "
+            f"input in f32); got {g.cin} -> {g.cout} at {g.h}x{g.w}, k "
+            f"{g.k}, stride {g.stride}, pad {g.pad}, x dtype code {x.dtype}")
     kind = lib.mft_conv_fwd_tc_kind(ctypes.byref(a), ctypes.byref(x))
     if kind == _TC_NONE:
         raise ValueError(
@@ -473,8 +486,8 @@ def client_stem_conv(x_flat: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     convolution [C, B, 14, 14, 128], no epilogue, in ``x_flat``'s dtype
     (bf16 or f32; f32 accumulation). Runs :func:`conv_fwd`'s kernel on CUDA
     (``stem_raw_tc`` in bf16, ``stem_raw_tf32`` in f32, at cin = 8 with
-    16-byte aligned samples; ``conv_fwd`` in f32 otherwise) and the plain
-    version on the CPU."""
+    16-byte aligned samples; the CUDA-core ``conv_fwd`` in f32 otherwise)
+    and the plain version on the CPU."""
     if x_flat.device.type == "cpu":
         return client_stem_conv_plain(x_flat, w4)
     x, w = _stem_operands(x_flat, w4)

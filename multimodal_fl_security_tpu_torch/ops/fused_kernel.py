@@ -6,7 +6,9 @@ training in one Pallas kernel. Here each SGD step is a fixed sequence of
 launches over all C clients at once:
 
     conv_fwd (stem)   3x3 SAME conv at the 4 pool offsets, max, bias, relu
+                      (stem_fwd_tc in bf16, stem_fwd_f32 in f32)
     conv_fwd (conv2)  3x3 SAME conv, bias, relu, 2x2 max-pool
+                      (conv2_fwd_tc in bf16, conv2_fwd_tf32 in f32)
     dense_fwd (fc1)   + bias, relu
     dense_fwd (fc2)   + bias, in f32
     client_ce         masked mean CE and dlogits
@@ -77,6 +79,8 @@ from multimodal_fl_security_tpu_torch.ops.philox import (
 )
 
 #: the kernel wrappers one SGD step launches, with their launches per step
+#: (each wrapper runs the kernel of the compute dtype: ``conv_fwd`` the
+#: stem's and conv2's pooled forward kernels, see ``_launch.KERNEL_LAUNCHES``)
 STEP_KERNELS = {conv_fwd: 2, dense_fwd: 2, client_ce: 1, dense_bwd: 2,
                 conv_wgrad: 2, conv_dgrad: 1, client_sq_norm: 1,
                 client_sgd_update: 1}

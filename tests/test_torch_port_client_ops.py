@@ -709,12 +709,13 @@ def dense_case(gen, c, rows, k, f, dtype, ints=False):
 
 @pytest.mark.cuda
 def test_kernel_choice_follows_the_dtype(cuda):
-    """f32 launches the CUDA-core kernels but for conv2's weight and input
-    gradients (conv2_wgrad_tf32, conv2_dgrad_tf32: 3xTF32) and a dense
-    layer at fc1's geometry (dense_fwd_tf32, dense_bwd_tf32), bf16 the
-    tensor-core ones; the raw mode, K3, runs stem_raw_tf32 in f32 and
-    stem_raw_tc in bf16. Each kernel has its own count, the wrappers count
-    all of theirs."""
+    """f32 launches the CUDA-core kernels but for conv2's forward, weight
+    and input gradients (conv2_fwd_tf32, conv2_wgrad_tf32,
+    conv2_dgrad_tf32: 3xTF32) and a dense layer at fc1's geometry
+    (dense_fwd_tf32, dense_bwd_tf32); its pooled stem forward runs the
+    CUDA-core stem_fwd_f32. bf16 launches the tensor-core ones; the raw
+    mode, K3, runs stem_raw_tf32 in f32 and stem_raw_tc in bf16. Each
+    kernel has its own count, the wrappers count all of theirs."""
     counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         for layer, cin in TC_CASES:
@@ -761,13 +762,15 @@ def test_kernel_choice_follows_the_dtype(cuda):
         tc = dtype == torch.bfloat16
         for layer, cin in TC_CASES:
             dgrad = int(layer == "conv2")
-            fwd_tc = "conv2_fwd_tc" if layer == "conv2" else "stem_fwd_tc"
+            fwd = {True: {"conv2": "conv2_fwd_tc", "stem": "stem_fwd_tc"},
+                   False: {"conv2": "conv2_fwd_tf32",
+                           "stem": "stem_fwd_f32"}}[tc][layer]
             wgrad32 = "conv2_wgrad_tf32" if layer == "conv2" else \
                 "conv_wgrad"
             want = {**zero, wgrad32: int(not tc), "conv_wgrad_tc": int(tc),
                     "conv2_dgrad_tf32": dgrad * int(not tc),
                     "conv_dgrad_tc": dgrad * int(tc)}
-            want["conv_fwd" if not tc else fwd_tc] = 1
+            want[fwd] = 1
             assert counts[dtype, layer, cin] == want, (dtype, layer, cin)
         assert counts[dtype, "raw", 8] == {
             **zero, ("stem_raw_tc" if tc else "stem_raw_tf32"): 1}
