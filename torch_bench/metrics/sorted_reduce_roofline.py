@@ -1,0 +1,8 @@
+"""The sorted-reduce kernel's share of its roofline (bytes-bound), in %.
+Layer: the kernels."""
+
+from torch_bench.metrics._roofline import share
+
+
+def read(ctx):
+    return share(ctx, "sorted_reduce")
