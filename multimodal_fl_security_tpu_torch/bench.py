@@ -14,8 +14,8 @@ Run on a CUDA card::
 
     python -m multimodal_fl_security_tpu_torch.bench
 
-prints one JSON line in ``bench.py``'s schema, plus the card's name and
-power limit.
+prints one JSON line in ``bench.py``'s schema, without its ``vs_baseline``,
+plus the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -37,8 +37,6 @@ NUM_TEST = 1000
 #: H100 SXM dense bf16 peak (NVIDIA data sheet, at a 700 W power limit):
 #: the denominator of ``mfu_logical``.
 PEAK_FLOPS = 989e12
-#: the reference's ~30 s/round (BASELINE.md)
-BASELINE_ROUNDS_PER_MIN = 2.0
 
 
 def synthetic_images(labels: torch.Tensor, protos: torch.Tensor,
@@ -151,8 +149,9 @@ def nvidia_smi_line() -> str:
 def result_line(n_rounds: int, seconds: float,
                 metric: str = "fl_rounds_per_min_100c_krum",
                 with_gram: bool = True) -> Dict:
-    """``bench.py``'s JSON schema, plus the card it ran on. ``with_gram``
-    counts a Gram's FLOPs in ``mfu_logical`` (Krum and Bulyan have one)."""
+    """``bench.py``'s JSON schema without ``vs_baseline``, plus the card it
+    ran on. ``with_gram`` counts a Gram's FLOPs in ``mfu_logical`` (Krum and
+    Bulyan have one)."""
     rounds_per_min = n_rounds / seconds * 60.0
     mfu = (logical_flops_per_round(with_gram) * (n_rounds / seconds)
            / PEAK_FLOPS)
@@ -160,7 +159,6 @@ def result_line(n_rounds: int, seconds: float,
         "metric": metric,
         "value": rounds_per_min,
         "unit": "rounds/min",
-        "vs_baseline": rounds_per_min / BASELINE_ROUNDS_PER_MIN,
         "mfu_logical": mfu,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": nvidia_smi_line(),

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_fl_security_tpu_torch.data.stacking import ClientData
+from multimodal_fl_security_tpu_torch.utils import tracing
 
 _JAX_ENGINE = "multimodal_fl_security_tpu/rounds/engine.py"
 
@@ -120,26 +121,28 @@ def make_local_train_fn(model, spec: TrainSpec, n_samples: int) -> Callable:
                     mask: torch.Tensor, generator: torch.Generator
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         images, labels = data["image"], data["label"]
-        clients = mask.shape[0]
-        rows = torch.arange(clients, device=mask.device).unsqueeze(1)
+        clients, device = mask.shape[0], mask.device
+        rows = torch.arange(clients, device=device).unsqueeze(1)
         stacked = params.detach().expand(clients, -1).clone()
         stacked.requires_grad_(True)
         trace = torch.zeros_like(stacked) if spec.momentum > 0 else None
         epoch_losses = []
         for _ in range(spec.local_epochs):
             perm = torch.rand(mask.shape, generator=generator,
-                              device=mask.device).argsort(dim=1)
+                              device=device).argsort(dim=1)
             step_losses = []
             for s in range(steps):
                 idx = perm[:, s * bsz:(s + 1) * bsz]
-                logits = model(stacked, images[rows, idx], train=True,
-                               generator=generator)
-                losses = cross_entropy(logits, labels.gather(1, idx),
-                                       mask.gather(1, idx),
-                                       spec.label_smoothing)
+                with tracing.span("forward", device):
+                    logits = model(stacked, images[rows, idx], train=True,
+                                   generator=generator)
+                    losses = cross_entropy(logits, labels.gather(1, idx),
+                                           mask.gather(1, idx),
+                                           spec.label_smoothing)
                 stacked.grad = None
-                losses.sum().backward()
-                with torch.no_grad():
+                with tracing.span("backward", device):
+                    losses.sum().backward()
+                with torch.no_grad(), tracing.span("optimizer", device):
                     sgd_step(stacked, stacked.grad, trace, spec)
                 step_losses.append(losses.detach())
             epoch_losses.append(torch.stack(step_losses).mean(dim=0))
@@ -198,13 +201,23 @@ class RoundEngine:
     def run_round(self, params: torch.Tensor, generator: torch.Generator
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global ``[D]`` buffer ``params``: returns the
-        new global buffer and the round's metrics (device tensors)."""
-        updates, client_losses = self._local_train(
-            params, self.arrays, self.mask, generator)  # [C, D], [C]
-        updates = self.attack.poison_updates(
-            generator, updates, params, self.malicious_mask, self.num_clients)
+        new global buffer and the round's metrics (device tensors).
+
+        While a profiler session records, each layer and each local step's
+        forward, backward and optimizer step is a span (``utils/tracing.py``).
+        """
+        tracing.next_round()
+        with tracing.span("local_train", self.device):
+            updates, client_losses = self._local_train(
+                params, self.arrays, self.mask, generator)  # [C, D], [C]
+        with tracing.span("attack", self.device):
+            updates = self.attack.poison_updates(
+                generator, updates, params, self.malicious_mask,
+                self.num_clients)
         ctx = {"global": params, "generator": generator}
-        agg, aux = self.defense.aggregate_with_aux(updates, self.counts, ctx)
+        with tracing.span("aggregate", self.device):
+            agg, aux = self.defense.aggregate_with_aux(updates, self.counts,
+                                                       ctx)
         metrics = {
             "client_loss_mean": client_losses.mean(),
             "update_norm_mean": torch.linalg.vector_norm(
