@@ -37,11 +37,18 @@ paths and fails loudly on anything wrong. Phases, in order:
    one Gram launch per round, and test accuracy > 0.5 (chance is 0.1).
 6. Robust rounds at the same width, clients 0..19 malicious: R1 ALIE +
    trimmed mean (1 warm-up and 3 timed rounds), R2 IPM + median, R3
-   scaling + geometric median, R4 min_max + Bulyan (2 rounds each).
-   Requires finite losses and parameters, one sorted-reduce launch per
-   round (and one Gram launch per round in R4), the first round's
-   aggregate through the kernels equal to the plain versions' on the same
-   update matrix, and test accuracy > 0.5 after R1 and R2.
+   scaling + geometric median, R4 min_max + Bulyan (2 rounds each), in
+   bf16, and R5, R1's round in f32 (the benchmark's trimmed cell; 2
+   rounds). Requires finite losses and parameters, one sorted-reduce
+   launch per round (and one Gram launch per round in R4), the first
+   round's aggregate through the kernels equal to the plain versions' on
+   the same update matrix, and test accuracy > 0.5 after R1 and R2. Local
+   training runs on the engine's kernel trainer
+   (``ops/fused_kernel.py::kernel_local_train``), counted in every run:
+   one call a round, 16 launches a step by wrapper
+   (``DRAWN_DROPOUT_STEP_KERNELS``: 4 of them ``drawn_dropout``) and by
+   kernel those of the run's dtype (as in 7b and 7c). These counts are
+   the launches of the kernels line's local-training rows.
 
 7. Fused local training (the K3/K4 slice), at the north star's width:
    (a) each kernel of ``csrc/client_conv.cu``, ``client_dense.cu`` and
@@ -83,7 +90,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    ``dense_bwd_tc`` and fc2's ``dense_fwd`` and ``dense_bwd``, 76 + 38 on
    the conv gradients' tensor-core kernels, two calls
    bitwise equal, FedAvg test accuracy > 0.5; prints the kernel path's,
-   the mirror's and the engine trainer's ms per call; then one f32
+   the mirror's, the engine trainer's and the autograd trainer's ms per
+   call; then one f32
    ``fused_local_train`` call on the same clients
    (``fused_kernel_bench.time_call``), timed with its launches by kernel
    (38 each of ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``dense_fwd_tf32``,
@@ -116,7 +124,11 @@ paths and fails loudly on anything wrong. Phases, in order:
    tolerance; times of both, and of the backward-only kernels (also in 5
    rounds of turns against their plain versions).
 10. K4's dropout: the dropout kernel against its plain version (bitwise,
-   [100, 32, 3136] and [100, 32, 128], f32 and bf16);
+   [100, 32, 3136] and [100, 32, 128], f32 and bf16); the kernel trainer's
+   ``drawn_dropout`` against ``drawn_dropout_plain`` on the same x and
+   drawn uniforms u at the round's shapes and keeps ([100, 32, 3136] at
+   0.75, [100, 32, 128] at 0.5, f32 and bf16; bitwise), timed in turns
+   beside the plain version with its bound (x and u read, y written);
    ``run_check(use_dropout=True)`` (C=4, f32, against the mirror fed the
    plain generator's masks, within 1e-4); ``run_bench(use_dropout=True)``
    at full width in bf16: 16 launches per step x 38 steps (by kernel as in
@@ -156,16 +168,19 @@ REL_TOL = 1e-5
 SORT_REL_TOL = 1e-6  # trimmed mean: f32 sums in another order
 GEOMED_REL_TOL = 1e-5
 NUM_MALICIOUS = 20
-#: (run, defense, its config, attack, its config, warm-up rounds, rounds)
+#: (run, defense, its config, attack, its config, warm-up rounds, rounds,
+#: compute dtype)
 ROBUST_RUNS = [
     ("R1", "trimmed_mean", {"trim_ratio": 0.1},
-     "alie", {"num_malicious": NUM_MALICIOUS}, 1, 3),
+     "alie", {"num_malicious": NUM_MALICIOUS}, 1, 3, torch.bfloat16),
     ("R2", "median", {}, "ipm", {"epsilon": 0.1, "use_benign_mean": True},
-     0, 2),
+     0, 2, torch.bfloat16),
     ("R3", "geometric_median", {"max_iters": 100, "tol": 1e-5},
-     "scaling", {"scale": 10.0}, 0, 2),
+     "scaling", {"scale": 10.0}, 0, 2, torch.bfloat16),
     ("R4", "bulyan", {"num_malicious": NUM_MALICIOUS},
-     "min_max", {"perturbation": "std"}, 0, 2),
+     "min_max", {"perturbation": "std"}, 0, 2, torch.bfloat16),
+    ("R5", "trimmed_mean", {"trim_ratio": 0.1},
+     "alie", {"num_malicious": NUM_MALICIOUS}, 0, 2, torch.float32),
 ]
 MIN_ACCURACY = {"R1": 0.5, "R2": 0.5}
 #: H100 SXM data sheet, dense, at a 700 W power limit
@@ -254,6 +269,10 @@ TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
             "dense_bwd_tf32_kernel": "HMMA"}
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
 DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
+#: the engine's dropout, which the kernel trainer applies from drawn uniforms
+DRAWN_DROPOUT_REPLACES = "multimodal_fl_security_tpu/models/simple_cnn.py:104"
+#: fc1's two dropout layers in the round: (shape, keep)
+DRAWN_DROPOUT_CASES = (((100, 32, 3136), 0.75), ((100, 32, 128), 0.5))
 
 
 def phase_device() -> str:
@@ -742,43 +761,82 @@ def check_aggregate(run: str, defense, u: torch.Tensor,
 
 
 def phase_robust_rounds() -> dict:
-    """R1-R4 at full width; returns each kernel's launches over the runs."""
+    """R1-R5 at full width; returns each kernel's launches over the runs,
+    by wrapper (the Gram, the sorted reduce and the kernel trainer's) and
+    by kernel (``ops/_launch.py::KERNEL_LAUNCHES``)."""
     from multimodal_fl_security_tpu_torch.bench import (
         build_engine,
         result_line,
         time_rounds,
     )
+    from multimodal_fl_security_tpu_torch.ops._launch import (
+        kernel_launches,
+        reset_kernel_launches,
+    )
+    from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+        DRAWN_DROPOUT_STEP_KERNELS,
+        kernel_local_train,
+    )
     from multimodal_fl_security_tpu_torch.ops.gram import gram
     from multimodal_fl_security_tpu_torch.ops.sorted_reduce import sorted_reduce
     from multimodal_fl_security_tpu_torch.utils.metrics import evaluate_model
 
-    totals = {"gram": 0, "sorted_reduce": 0}
+    aggregation = (gram, sorted_reduce)
+    totals = {"gram": 0, "sorted_reduce": 0,
+              "trainer": {w.__name__: 0 for w in DRAWN_DROPOUT_STEP_KERNELS},
+              "kernels": dict.fromkeys(kernel_launches(), 0)}
     low_accuracy = []
-    for run, defense, dconf, attack, aconf, warm, n_rounds in ROBUST_RUNS:
+    for run, defense, dconf, attack, aconf, warm, n_rounds, dtype in \
+            ROBUST_RUNS:
         engine, params, test_set = build_engine(
             "cuda", defense=defense, defense_config=dconf, attack=attack,
-            attack_config=aconf, num_malicious_clients=NUM_MALICIOUS)
+            attack_config=aconf, num_malicious_clients=NUM_MALICIOUS,
+            dtype=dtype)
         recorder = FirstUpdates(engine.defense)
         engine.defense = recorder
         gen = torch.Generator("cuda").manual_seed(0)
         torch.cuda.synchronize()
 
-        gram.launches = 0
-        sorted_reduce.launches = 0
+        for w in (*aggregation, *DRAWN_DROPOUT_STEP_KERNELS):
+            w.launches = 0
+        kernel_local_train.calls = 0
+        reset_kernel_launches()
         metrics = []
         for _ in range(warm):
             params, m = engine.run_round(params, gen)
             metrics.append(m)
         params, seconds, timed = time_rounds(engine, params, gen, n_rounds)
-        launches = {"gram": gram.launches,
-                    "sorted_reduce": sorted_reduce.launches}
+        launches = {w.__name__: w.launches for w in aggregation}
+        trainer = {w.__name__: w.launches for w in DRAWN_DROPOUT_STEP_KERNELS}
+        by_kernel = kernel_launches()
+        calls = kernel_local_train.calls
         metrics += timed
 
         rounds = warm + n_rounds
+        steps = rounds * engine.spec.local_epochs * (
+            engine.mask.shape[1] // engine.spec.batch_size)
         losses = [float(m["client_loss_mean"]) for m in metrics]
-        print(f"[robust] {run} {attack} + {defense}: {rounds} rounds, "
-              f"{n_rounds} timed in {seconds:.3f} s; client_loss_mean "
-              f"{losses}; launches {launches}")
+        print(f"[robust] {run} {attack} + {defense} ({dtype}): {rounds} "
+              f"rounds, {n_rounds} timed in {seconds:.3f} s; "
+              f"client_loss_mean {losses}; launches {launches}; the kernel "
+              f"trainer: {calls} call(s), {steps} steps, launches by wrapper "
+              f"{trainer}, by kernel "
+              f"{ {k: v for k, v in by_kernel.items() if v} }")
+        want_trainer = {w.__name__: k * steps
+                        for w, k in DRAWN_DROPOUT_STEP_KERNELS.items()}
+        want_kernels = kernel_counts(
+            f32_steps=steps if dtype == torch.float32 else 0,
+            tc_steps=steps if dtype == torch.bfloat16 else 0)
+        if calls != rounds or trainer != want_trainer \
+                or by_kernel != want_kernels:
+            raise AssertionError(
+                f"{run}: the kernel trainer ran {calls} time(s) in {rounds} "
+                f"rounds, launches by wrapper {trainer} (expected "
+                f"{want_trainer}), by kernel {by_kernel} (expected "
+                f"{want_kernels})")
+        for kind, counts in (("trainer", trainer), ("kernels", by_kernel)):
+            for name, n in counts.items():
+                totals[kind][name] += n
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{run}: non-finite client loss: {losses}")
         if params.shape != (MAIN_SHAPE[1],) or not bool(
@@ -790,8 +848,8 @@ def phase_robust_rounds() -> dict:
         if launches != want:
             raise AssertionError(f"{run}: expected launches {want}, counted "
                                  f"{launches}")
-        for name in totals:
-            totals[name] += launches[name]
+        for name, n in launches.items():
+            totals[name] += n
 
         check_aggregate(run, recorder.defense, recorder.updates, engine.counts)
         ev = evaluate_model(engine.model, params, test_set)
@@ -1387,7 +1445,8 @@ def phase_fused_path() -> dict:
           f"{json.dumps(bench)}")
     print(f"[fused] ms per call: kernel path {bench['kernel_ms']:.3f}, "
           f"mirror {bench['mirror_ms']:.3f}, engine trainer "
-          f"{bench['engine_ms']:.3f}; max drift from the mirror "
+          f"{bench['engine_ms']:.3f}, autograd trainer "
+          f"{bench['autograd_ms']:.3f}; max drift from the mirror "
           f"{bench['max_drift_vs_mirror']:.6g}")
     failures = []
     if not bench["finite"]:
@@ -1606,17 +1665,16 @@ def raw_conv_fwd(c: int, b: int, gen: torch.Generator) -> dict:
     return row
 
 
-def check_kernels(what: str, result: dict, f32_steps: int = 0,
-                  tc_steps: int = 0) -> None:
-    """Every launch of the conv and dense wrappers went through the kernel
-    of its dtype, per step: two forward convs, two weight gradients and one
-    input gradient, and fc1's and fc2's forward and backward; in f32 conv2
-    and fc1 on the 3xTF32 kernels (conv2_fwd_tf32, conv2_wgrad_tf32,
-    conv2_dgrad_tf32, dense_fwd_tf32, dense_bwd_tf32), the stem's forward
-    on stem_fwd_f32 and the rest on the CUDA-core kernels, none on
-    conv_fwd; in bf16 all on the tensor-core ones but fc2's (f32
-    weights)."""
-    want = {"conv_fwd": 0, "conv2_fwd_tc": tc_steps,
+def kernel_counts(f32_steps: int = 0, tc_steps: int = 0) -> dict:
+    """The launches by kernel of ``f32_steps`` f32 and ``tc_steps`` bf16
+    SGD steps of the kernel path: per step two forward convs, two weight
+    gradients and one input gradient, and fc1's and fc2's forward and
+    backward; in f32 conv2 and fc1 on the 3xTF32 kernels (conv2_fwd_tf32,
+    conv2_wgrad_tf32, conv2_dgrad_tf32, dense_fwd_tf32, dense_bwd_tf32),
+    the stem's forward on stem_fwd_f32 and the rest on the CUDA-core
+    kernels, none on conv_fwd; in bf16 all on the tensor-core ones but
+    fc2's (f32 weights)."""
+    return {"conv_fwd": 0, "conv2_fwd_tc": tc_steps,
             "conv2_fwd_tf32": f32_steps, "stem_fwd_tc": tc_steps,
             "stem_fwd_f32": f32_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
             "conv_wgrad": f32_steps, "conv2_wgrad_tf32": f32_steps,
@@ -1625,6 +1683,13 @@ def check_kernels(what: str, result: dict, f32_steps: int = 0,
             "dense_fwd": f32_steps + tc_steps, "dense_fwd_tc": tc_steps,
             "dense_fwd_tf32": f32_steps, "dense_bwd": f32_steps + tc_steps,
             "dense_bwd_tc": tc_steps, "dense_bwd_tf32": f32_steps}
+
+
+def check_kernels(what: str, result: dict, f32_steps: int = 0,
+                  tc_steps: int = 0) -> None:
+    """Every launch of the conv and dense wrappers went through the kernel
+    of its dtype (:func:`kernel_counts`)."""
+    want = kernel_counts(f32_steps, tc_steps)
     got = result["kernel_launches"]
     print(f"[fused] {what}: launches by kernel {got}")
     if got != want:
@@ -1930,7 +1995,8 @@ def phase_dropout() -> tuple:
           f"{time.perf_counter() - t0:.1f} s: {json.dumps(bench)}")
     print(f"[dropout] ms per call: with dropout {bench['kernel_ms']:.3f}, "
           f"without {bench['no_dropout_ms']:.3f}; mirror (masks given) "
-          f"{bench['mirror_ms']:.3f}, engine trainer {bench['engine_ms']:.3f}; "
+          f"{bench['mirror_ms']:.3f}, engine trainer {bench['engine_ms']:.3f}, "
+          f"autograd trainer {bench['autograd_ms']:.3f}; "
           f"max drift from the mirror {bench['max_drift_vs_mirror']:.6g}")
     failures = []
     if not bench["finite"]:
@@ -1952,6 +2018,46 @@ def phase_dropout() -> tuple:
     return row, bench["launches"]["dropout_apply"]
 
 
+def phase_drawn_dropout() -> dict:
+    """10, continued: the kernel trainer's ``drawn_dropout`` against its
+    plain version at the round's shapes and keeps, f32 and bf16 (bitwise),
+    then timed; returns its row of the kernels line without launches."""
+    from multimodal_fl_security_tpu_torch.ops.client_dropout import (
+        drawn_dropout,
+        drawn_dropout_plain,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    times = {}
+    for shape, keep in DRAWN_DROPOUT_CASES:
+        u = torch.rand(shape, generator=gen, device="cuda")
+        for dt in (f32, bf16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            kw = dict(keep=keep, dtype=dt)
+            got, want = drawn_dropout(x, u, **kw), drawn_dropout_plain(x, u,
+                                                                       **kw)
+            bits = torch.int32 if dt == f32 else torch.int16
+            if not torch.equal(got.view(bits), want.view(bits)):
+                raise AssertionError(f"drawn_dropout {shape} {dt}: the kernel "
+                                     f"differs from its plain version")
+            ms, plain_ms = turns(lambda: drawn_dropout(x, u, **kw),
+                                 lambda: drawn_dropout_plain(x, u, **kw), 10)
+            bound_ms, bound_by = bound(nbytes(x, u, got), 0)
+            times[(shape, dt)] = (ms, plain_ms, bound_ms, bound_by)
+            kept = float((u < keep).float().mean())
+            print(f"[dropout] drawn_dropout {list(shape)} {dt} keep {keep}: "
+                  f"bitwise the plain version; kept {kept:.6f}; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+    # The row: fc1's input layer in f32, the benchmark's cells' path.
+    ms, plain_ms, bound_ms, bound_by = times[(DRAWN_DROPOUT_CASES[0][0], f32)]
+    return {"name": "drawn_dropout", "route": "cuda",
+            "source": DROPOUT_SOURCE, "replaces": DRAWN_DROPOUT_REPLACES,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -1966,23 +2072,31 @@ def main() -> None:
     probe_rows, k5 = phase_probes()
     ad_rows, k6 = phase_ad_probes()
     drop_row, drop_launches = phase_dropout()
-    # Each path ran with the counts set to 0 just before it.
+    drawn_row = phase_drawn_dropout()
+    # Each path ran with the counts set to 0 just before it. Local
+    # training's kernels: their launches in R1-R5's rounds (the kernel
+    # trainer), by kernel where a wrapper runs several.
+    trainer = {**robust["trainer"], **robust["kernels"],
+               "conv_wgrad_stem": robust["kernels"]["conv_wgrad"]}
     gram_row["launches"] = north_star + robust["gram"]
     sort_row["launches"] = robust["sorted_reduce"]
     for kernel, row in fused_rows.items():
-        row["launches"] = fused[kernel]
+        row["launches"] = trainer[kernel]
     for kernel, row in {**probe_rows, **ad_rows}.items():
         row["launches"] = k5[kernel] + k6[kernel]
     drop_row["launches"] = drop_launches
+    drawn_row["launches"] = trainer["drawn_dropout"]
     print(f"[paths] gram launches: {north_star} (Krum north star) + "
           f"{robust['gram']} (R4); sorted_reduce launches: "
-          f"{robust['sorted_reduce']} (R1-R4); fused local training (one "
-          f"call, 38 steps): {fused}; K3 (one call each): "
+          f"{robust['sorted_reduce']} (R1-R5); the kernel trainer in R1-R5 "
+          f"(bf16 R1-R4, f32 R5): by wrapper {robust['trainer']}, by kernel "
+          f"{robust['kernels']}; fused_local_train (one call, 38 steps, "
+          f"bf16): {fused}; K3 (one call each): "
           f"{ {r['name']: r['launches'] for r in k3_rows} }; K5 probes: "
           f"{k5}; K6 probes: {k6}; "
-          f"dropout (one call, 38 steps): {drop_launches}")
+          f"Philox dropout (one call, 38 steps): {drop_launches}")
     rows = [gram_row, sort_row, *fused_rows.values(), *k3_rows,
-            *probe_rows.values(), *ad_rows.values(), drop_row]
+            *probe_rows.values(), *ad_rows.values(), drop_row, drawn_row]
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")

@@ -54,14 +54,16 @@ def build_engine(device, num_clients: int = NUM_CLIENTS,
                  defense_config: Optional[Dict[str, Any]] = None,
                  attack: str = "none",
                  attack_config: Optional[Dict[str, Any]] = None,
-                 num_malicious_clients: int = 0):
+                 num_malicious_clients: int = 0,
+                 dtype: torch.dtype = torch.bfloat16):
     """Build ``(engine, params, test_set)`` for the north-star workload on
     ``device``. ``num_clients`` and ``samples_per_client`` shrink it for a
     CPU rehearsal; the bench runs the defaults.
 
     ``defense`` and ``attack`` are registry names with their configs;
     clients ``0 .. num_malicious_clients-1`` are malicious. The defaults
-    build the north-star Krum round (f=20, k=1) with no attack."""
+    build the north-star Krum round (f=20, k=1) with no attack. ``dtype``
+    is the model's compute dtype (the north star's bf16 by default)."""
     from multimodal_fl_security_tpu_torch.attacks import get_attack
     from multimodal_fl_security_tpu_torch.data.stacking import ClientData
     from multimodal_fl_security_tpu_torch.defenses import get_defense
@@ -93,8 +95,8 @@ def build_engine(device, num_clients: int = NUM_CLIENTS,
     test_set = {"image": synthetic_images(test_labels, protos, gen),
                 "label": test_labels}
 
-    # bf16 conv/dense compute; params, grads and Krum stay f32.
-    model = create_model("simple_cnn", num_classes=10, dtype=torch.bfloat16)
+    # bf16 conv/dense compute by default; params, grads and Krum stay f32.
+    model = create_model("simple_cnn", num_classes=10, dtype=dtype)
     params = init_model(model, in_channels=1, seed=0, device=device)
     spec = TrainSpec(learning_rate=0.01, local_epochs=LOCAL_EPOCHS,
                      batch_size=BATCH_SIZE)

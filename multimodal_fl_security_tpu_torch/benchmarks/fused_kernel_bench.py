@@ -9,15 +9,18 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
 - :func:`run_bench`: the north-star width (100 clients x 600 real rows
   padded to 608, batch 32, 2 epochs = 38 SGD steps per client, bf16
   compute, lr 0.01, momentum 0.9, clip 1.0) on the port bench's 1-channel
-  synthetic clients (``bench.build_engine``). It times three trainers on the
+  synthetic clients (``bench.build_engine``). It times four trainers on the
   same data, ms per call after ``torch.cuda.synchronize()``: the kernel
-  path, the mirror, and the engine's ``make_local_train_fn`` (shuffled,
-  with dropout: what the JAX bench compares against). It also counts the
-  kernel path's launches per call by wrapper and by kernel (the conv and
-  dense kernels, ``ops/_launch.py::KERNEL_LAUNCHES``), checks that two calls
-  are bitwise equal, measures the drift from the mirror, and evaluates the
-  FedAvg of the trained clients and of the engine trainer's on the bench's
-  test set.
+  path, the mirror, the engine's ``make_local_train_fn`` (shuffled, with
+  dropout; on the card the kernel trainer ``kernel_local_train`` with the
+  engine's draws) and the engine's autograd trainer
+  (``autograd_local_train``, what the JAX bench compares against: the same
+  round in plain PyTorch). It also counts the kernel path's launches per
+  call by wrapper and by kernel (the conv and dense kernels,
+  ``ops/_launch.py::KERNEL_LAUNCHES``), checks that two calls are bitwise
+  equal, measures the drift from the mirror, and evaluates the FedAvg of
+  the trained clients and of the engine's two trainers' on the bench's test
+  set.
   With ``use_dropout`` the kernel path drops at rates 0.25 / 0.5 (Philox
   masks drawn in the kernel) and the mirror takes the plain generator's
   masks for the same seed; the bench adds the change that another seed
@@ -147,7 +150,7 @@ def logical_flops_per_call(clients: int, samples: int, epochs: int) -> float:
 def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
               iters: int = 3, use_dropout: bool = False,
               seed: int = 0) -> Dict:
-    """The three trainers at the north-star width, with dropout if asked;
+    """The four trainers at the north-star width, with dropout if asked;
     see the module doc."""
     from multimodal_fl_security_tpu_torch.bench import build_engine
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
@@ -164,6 +167,7 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     )
     from multimodal_fl_security_tpu_torch.ops.reductions import weighted_mean
     from multimodal_fl_security_tpu_torch.rounds.engine import (
+        autograd_local_train,
         make_local_train_fn,
     )
     from multimodal_fl_security_tpu_torch.utils.metrics import evaluate_model
@@ -192,6 +196,10 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     def engine_trainer():
         return local_train(params, engine.arrays, mask, gen)[0]
 
+    def autograd_trainer():
+        return autograd_local_train(engine.model, engine.spec, params,
+                                    engine.arrays, mask, gen)[0]
+
     def fedavg(clients):
         return evaluate_model(engine.model,
                               weighted_mean(clients, engine.counts), test_set)
@@ -216,13 +224,18 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
         extra["max_change_other_seed"] = float(
             (out - kernel(at_seed=seed + 1)).abs().max())
     del again, ref
-    # The one trainer not yet run: its warm-up, and its FedAvg accuracy
-    # (it drops at the model's rates from its own generator).
+    # The engine's two trainers, not yet run: their warm-up, and their
+    # FedAvg accuracy (each drops at the model's rates from its own
+    # generator).
     extra["engine_fedavg_accuracy"] = float(fedavg(engine_trainer())["accuracy"])
-    # In turns: kernel, mirror, engine, (without dropout twice), kernel.
+    extra["autograd_fedavg_accuracy"] = float(
+        fedavg(autograd_trainer())["accuracy"])
+    # In turns: kernel, mirror, engine, autograd, (without dropout twice),
+    # kernel.
     kern_a = _time_call(kernel, device, iters)
     mirror_ms = _time_call(mirror, device, iters)
     engine_ms = _time_call(engine_trainer, device, iters)
+    autograd_ms = _time_call(autograd_trainer, device, iters)
     if use_dropout:
         runs = [_time_call(lambda: kernel(drop=False), device, iters)
                 for _ in range(2)]
@@ -236,6 +249,7 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
         "steps": steps, "kernel_ms": kernel_ms,
         "kernel_ms_runs": [kern_a, kern_b],
         "mirror_ms": mirror_ms, "engine_ms": engine_ms,
+        "autograd_ms": autograd_ms,
         "ms_per_step": kernel_ms / steps,
         "launches": launches, "launches_total": sum(launches.values()),
         "kernel_launches": per_kernel,

@@ -22,6 +22,18 @@
 // mask is [100, 32, 3136] (10.0 M elements, 2.5 M Philox calls, 40 MB read
 // and written in bf16: ~0.012 ms at 3.35 TB/s); ten rounds are ~100 integer
 // operations per call, well under the card's integer rate.
+//
+// drawn_dropout_kernel takes the mask from uniforms drawn outside instead:
+// the engine's round generator draws u [C, B, F] (f32, contiguous) per step
+// and layer, as rounds/engine.py's autograd trainer does, and
+//   y[c, b, f] = u[c, b, f] < keep ? round(x[c, b, f] / keep) : 0,
+// keep in f32, one correctly rounded division (models/simple_cnn.py::
+// dropout's x / keep, which PyTorch computes so on the CPU and as x times
+// the f32 reciprocal on CUDA: at most a rounding apart) and one rounding to
+// y's dtype. The backward applies the same u to the gradient:
+// where(mask, g, 0) / keep. What bounds it: bytes,
+// x and u read, y written (120 MB in f32 at [100, 32, 3136]: ~0.036 ms at
+// 3.35 TB/s).
 
 #include "client_common.cuh"
 #include "philox.cuh"
@@ -56,6 +68,26 @@ dropout_kernel(MftView x, MftView y, unsigned long long seed, int batch,
   }
 }
 
+// x: (client, sample, feature), any strides; u, y: contiguous [C, B, F].
+// Thread t of a block takes j = base + w * kThreads + t, w < 4: a warp reads
+// u and writes y in 128-byte runs.
+__global__ void __launch_bounds__(kThreads)
+drawn_dropout_kernel(MftView x, const float* __restrict__ u, MftView y,
+                     int batch, int feat, float keep) {
+  const long long n = static_cast<long long>(batch) * feat;
+  const int c = blockIdx.y;
+  const long long base = blockIdx.x * (4ll * kThreads) + threadIdx.x;
+  const long long row = static_cast<long long>(c) * n;
+  for (int w = 0; w < 4; ++w) {
+    const long long j = base + static_cast<long long>(w) * kThreads;
+    if (j >= n) break;
+    const long long b = j / feat;
+    const long long f = j - b * feat;
+    const float v = mft_ld(x, mft_off(x, c, b, f, 0, 0));
+    mft_st(y, row + j, u[row + j] < keep ? v / keep : 0.f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -75,6 +107,24 @@ int mft_dropout(const MftView* x, const MftView* y, unsigned long long seed,
   dropout_kernel<<<grid, kThreads, 0,
                    static_cast<cudaStream_t>(cuda_stream)>>>(
       *x, *y, seed, batch, feat, step, stream, threshold, scale);
+  return cudaGetLastError();
+}
+
+int mft_drawn_dropout(const MftView* x, const float* u, const MftView* y,
+                      int clients, int batch, int feat, float keep,
+                      int device, void* cuda_stream) {
+  if (clients <= 0 || batch <= 0 || feat <= 0 || clients > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(batch) * feat;
+  const dim3 grid(static_cast<unsigned>((n + 4 * kThreads - 1) /
+                                        (4 * kThreads)),
+                  clients);
+  drawn_dropout_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(cuda_stream)>>>(
+      *x, u, *y, batch, feat, keep);
   return cudaGetLastError();
 }
 

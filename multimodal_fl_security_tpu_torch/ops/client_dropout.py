@@ -11,12 +11,23 @@ below ``uint32(keep * 2**32)`` keeps its element. As in the JAX kernel, the
 mask is 1/keep where kept, computed in the compute dtype, and multiplies
 the activation in that dtype; the backward multiplies the gradient by the
 same regenerated mask.
+
+:func:`drawn_dropout` takes its mask from data instead: uniforms ``u``
+[C, B, F] that the engine's round generator drew, as
+``rounds/engine.py``'s autograd trainer draws them
+(``models/simple_cnn.py::dropout``). It keeps an element where ``u <
+keep`` and divides it by ``keep``, as that function's ``x / keep`` does on
+the CPU (on CUDA PyTorch multiplies by the f32 reciprocal instead, at most
+a rounding apart); the backward applies the same ``u`` to the gradient.
+:class:`PhiloxDropout` and :class:`DrawnDropout` are the two mask sources
+that ``ops/fused_kernel.py::step_grads`` takes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +40,8 @@ from multimodal_fl_security_tpu_torch.ops._launch import (
     view,
 )
 from multimodal_fl_security_tpu_torch.ops.philox import (
+    STREAM_FC1_IN,
+    STREAM_FC1_OUT,
     keep_threshold,
     philox_bits_plain,
 )
@@ -44,6 +57,9 @@ def _library() -> ctypes.CDLL:
     lib.mft_dropout.argtypes = [p, p, u64, i, i, i, i, i, u64,
                                 ctypes.c_float, i, ctypes.c_void_p]
     lib.mft_dropout.restype = i
+    lib.mft_drawn_dropout.argtypes = [p, ctypes.c_void_p, p, i, i, i,
+                                      ctypes.c_float, i, ctypes.c_void_p]
+    lib.mft_drawn_dropout.restype = i
     lib.mft_client_dropout_error_string.argtypes = [i]
     lib.mft_client_dropout_error_string.restype = ctypes.c_char_p
     return lib
@@ -111,3 +127,79 @@ def dropout_apply(x: torch.Tensor, *, seed: int, step: int, stream: int,
 
 
 dropout_apply.launches = 0
+
+
+def drawn_dropout_plain(x, u, *, keep, dtype):
+    """Plain version of :func:`drawn_dropout`: the division in f32 by a
+    device tensor, so that CUDA divides too (a Python divisor would be
+    multiplied by its reciprocal there)."""
+    keep_t = torch.tensor(keep, dtype=torch.float32, device=x.device)
+    y = torch.where(u < keep, x.float() / keep_t, 0.0)
+    return y.to(dtype)
+
+
+def drawn_dropout(x: torch.Tensor, u: torch.Tensor, *, keep: float,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``x`` [C, B, F] (any strides, in ``dtype``) where the drawn uniform
+    ``u`` [C, B, F] (f32, contiguous) is below ``keep``, divided by
+    ``keep``, else 0: a new contiguous [C, B, F] in ``dtype``.
+    ``drawn_dropout.launches`` counts kernel launches."""
+    if x.dim() != 3 or u.shape != x.shape:
+        raise ValueError(f"need x and u [C, B, F], got {tuple(x.shape)} and "
+                         f"{tuple(u.shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dropout runs in f32 or bf16, got {dtype}")
+    if x.device.type == "cpu":
+        return drawn_dropout_plain(x, u, keep=keep, dtype=dtype)
+    if x.dtype != dtype or u.dtype != torch.float32 \
+            or not u.is_contiguous():
+        raise TypeError(f"x must be in the compute dtype {dtype} and u a "
+                        f"contiguous f32 tensor, got {x.dtype} and {u.dtype}")
+    device = require_cuda(x, u)
+    c, b, f = x.shape
+    y = torch.empty((c, b, f), dtype=dtype, device=device)
+    lib = _library()
+    err = lib.mft_drawn_dropout(ctypes.byref(view(x, _AXES)), u.data_ptr(),
+                                ctypes.byref(view(y, _AXES)), c, b, f,
+                                float(keep), device.index, stream_of(x))
+    check(lib, err, "drawn_dropout", "client_dropout")
+    drawn_dropout.launches += 1
+    return y
+
+
+drawn_dropout.launches = 0
+
+#: the Philox stream of each of fc1's two dropout layers (input, output)
+_STREAMS = (STREAM_FC1_IN, STREAM_FC1_OUT)
+
+
+class PhiloxDropout(NamedTuple):
+    """fc1's two masks of global SGD step ``step``, drawn inside the kernel
+    from Philox under ``seed`` (``fused_local_train(use_dropout=True)``);
+    ``keeps`` holds each layer's keep probability."""
+
+    seed: int
+    step: int
+    keeps: Tuple[float, float]
+
+    def apply(self, t: torch.Tensor, layer: int,
+              dtype: torch.dtype) -> torch.Tensor:
+        return dropout_apply(t, seed=self.seed, step=self.step,
+                             stream=_STREAMS[layer], keep=self.keeps[layer],
+                             dtype=dtype)
+
+
+class DrawnDropout(NamedTuple):
+    """fc1's two masks from the uniforms the round generator drew for one
+    step: ``uniforms[layer]`` [C, B, F], or None for a layer at rate 0,
+    which drops nothing."""
+
+    uniforms: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+    keeps: Tuple[float, float]
+
+    def apply(self, t: torch.Tensor, layer: int,
+              dtype: torch.dtype) -> torch.Tensor:
+        u = self.uniforms[layer]
+        if u is None:
+            return t
+        return drawn_dropout(t, u, keep=self.keeps[layer], dtype=dtype)

@@ -35,13 +35,22 @@ NCLS = 10
 F1 = 64 * 7 * 7
 #: fc1's output width
 HID = 128
+#: input channels the stem's kernels take
+MAX_CIN = 8
+
+
+def kernels_take(images) -> bool:
+    """Whether ``images`` have the shape the kernels train on:
+    [C, N, cin, 28, 28] with 1 <= cin <= :data:`MAX_CIN`."""
+    return (images.dim() == 5 and tuple(images.shape[3:]) == (28, 28)
+            and 1 <= images.shape[2] <= MAX_CIN)
 
 
 def check_inputs(params, images, labels, bmask):
     """Validate the trainers' shared arguments; returns (C, N, steps, cin)."""
-    if images.dim() != 5 or tuple(images.shape[3:]) != (28, 28):
-        raise ValueError(f"images must be [C, N, cin, 28, 28], got "
-                         f"{tuple(images.shape)}")
+    if not kernels_take(images):
+        raise ValueError(f"images must be [C, N, cin, 28, 28] with 1 <= cin "
+                         f"<= {MAX_CIN}, got {tuple(images.shape)}")
     c, n, cin = images.shape[:3]
     if tuple(labels.shape) != (c, n) or tuple(bmask.shape) != (c, n):
         raise ValueError(f"labels and bmask must be [C, N] = {(c, n)}")

@@ -29,7 +29,8 @@ Read them by wrapping a few rounds in a profiler session::
 The spans, each timing the work where it happens: ``local_train``,
 ``attack`` and ``aggregate`` around the three layers of
 ``RoundEngine.run_round``, and, inside ``local_train``, ``forward`` (the
-model and the loss), ``backward`` and ``optimizer`` for every local step.
+model and the loss; in the kernel trainer also the step's draws and
+gathers), ``backward`` and ``optimizer`` for every local step.
 """
 
 from __future__ import annotations

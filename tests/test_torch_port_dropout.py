@@ -26,7 +26,10 @@ import torch
 
 from multimodal_fl_security_tpu_torch.models import create_model
 from multimodal_fl_security_tpu_torch.models.from_jax import params_from_jax
+from multimodal_fl_security_tpu_torch.models.simple_cnn import dropout
 from multimodal_fl_security_tpu_torch.ops.client_dropout import (
+    drawn_dropout,
+    drawn_dropout_plain,
     dropout_apply,
     dropout_apply_plain,
     dropout_mask_plain,
@@ -160,6 +163,21 @@ def test_mask_rounds_to_the_compute_dtype():
     assert y.dtype == torch.bfloat16 and torch.equal(y, x * m)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.25, 0.5, 0.1])
+def test_drawn_dropout_is_the_engines_dropout(dtype, rate):
+    """The mask from data (the kernel trainer's) against the engine's
+    ``models/simple_cnn.py::dropout`` on the uniforms drawn from one seed:
+    bitwise on the CPU, the kept elements divided by keep."""
+    x = torch.randn((3, 32, 200), generator=torch.Generator().manual_seed(1)
+                    ).to(dtype)
+    want = dropout(x, rate, torch.Generator().manual_seed(2))
+    u = torch.rand(x.shape, generator=torch.Generator().manual_seed(2))
+    got = drawn_dropout(x, u, keep=1.0 - rate, dtype=dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(got == 0, (u >= 1.0 - rate) | (x == 0))
+
+
 # ---------------------------------------------------------------- CUDA
 
 @pytest.mark.cuda
@@ -177,6 +195,30 @@ def test_dropout_kernel_is_its_plain_version(dtype, shape):
     # A strided view reads in place.
     xt = x.transpose(0, 1).contiguous().transpose(0, 1)
     assert torch.equal(dropout_apply(xt, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 5, 7), (100, 32, 3136),
+                                   (100, 32, 128)])
+def test_drawn_dropout_kernel_is_its_plain_version(dtype, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x[0, 0, :3] = torch.tensor([float("nan"), float("inf"), -0.0])
+    u = torch.rand(shape, generator=gen, device="cuda")
+    u[0, 0, :3] = torch.tensor([0.9, 0.1, 0.1])  # NaN dropped, inf kept
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for keep in (0.75, 0.5, 0.9):
+        got = drawn_dropout(x, u, keep=keep, dtype=dtype)
+        want = drawn_dropout_plain(x, u, keep=keep, dtype=dtype)
+        assert torch.equal(got.view(bits), want.view(bits))  # -0.0 too
+        assert got[0, 0, 0] == 0 and got[0, 0, 1] == float("inf")
+        # A strided view reads in place.
+        xt = x.transpose(0, 1).contiguous().transpose(0, 1)
+        assert torch.equal(drawn_dropout(xt, u, keep=keep, dtype=dtype)
+                           .view(bits), got.view(bits))
 
 
 @pytest.mark.cuda

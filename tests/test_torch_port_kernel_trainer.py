@@ -1,0 +1,162 @@
+"""The round engine's kernel trainer (``ops/fused_kernel.py::
+kernel_local_train``) and the rule that dispatches it
+(``rounds/engine.py::kernel_trainer_takes``).
+
+On the CPU the kernel trainer runs every kernel's plain version in the
+kernels' sequence of steps. It is held to the engine's autograd trainer
+(``make_local_train_fn``, which trains through autograd on the CPU) from
+two generators seeded alike: C=3 clients x 64 rows, one client's shard half
+padded, batch 32, 2 epochs, f32. Both draw each epoch's batch orders and
+each step's dropout uniforms from the generator in the same order, so the
+rows agree to f32 rounding (atol 1e-5), the losses to 1e-6 plus 1e-6 of
+their value (a few f32 roundings of lse - z_y, which cancels logits larger
+than the loss: 1.2e-6 at 2.38 measured), and the generators end in the
+same state. At rates (0, 0) nothing but the batch orders is drawn.
+
+The ``cuda`` cases run on the card and skip without one: the engine
+dispatches the kernel trainer there (its call counter and
+``LAUNCHES_PER_DROPOUT_STEP`` launches a step).
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from multimodal_fl_security_tpu_torch.models import create_model
+from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+    DRAWN_DROPOUT_STEP_KERNELS,
+    LAUNCHES_PER_DROPOUT_STEP,
+    kernel_local_train,
+)
+from multimodal_fl_security_tpu_torch.rounds.engine import (
+    TrainSpec,
+    kernel_trainer_takes,
+    make_local_train_fn,
+)
+from multimodal_fl_security_tpu_torch.utils import tracing
+
+C, N, B, EPOCHS, LR = 3, 64, 32, 2, 0.05
+STEPS = N // B
+
+
+def make_case(rates, device="cpu"):
+    """A SimpleCNN at dropout ``rates``, its [D] parameters, images [C, N,
+    1, 28, 28], labels and a mask with client 1's second half padded."""
+    model = create_model("simple_cnn", num_classes=10, dropout_rates=rates)
+    gen = torch.Generator(device).manual_seed(0)
+    params = model.init_params(1, gen)
+    images = torch.randn((C, N, 1, 28, 28), generator=gen, device=device)
+    labels = torch.randint(0, 10, (C, N), generator=gen, device=device)
+    mask = torch.ones((C, N), device=device)
+    mask[1, N // 2:] = 0.0
+    return model, params, images, labels, mask
+
+
+def train_both(rates):
+    """The autograd trainer and the kernel trainer from generators seeded
+    alike: (rows, losses, generator) of each."""
+    model, params, images, labels, mask = make_case(rates)
+    spec = TrainSpec(learning_rate=LR, local_epochs=EPOCHS, batch_size=B)
+    engine_gen = torch.Generator().manual_seed(7)
+    kernel_gen = torch.Generator().manual_seed(7)
+    rows, losses = make_local_train_fn(model, spec, N)(
+        params, {"image": images, "label": labels}, mask, engine_gen)
+    k_rows, k_losses = kernel_local_train(
+        params, images, labels, mask, kernel_gen, learning_rate=LR,
+        momentum=spec.momentum, clip_norm=spec.clip_norm,
+        local_epochs=EPOCHS, compute_dtype=torch.float32,
+        dropout_rates=rates)
+    return (rows, losses, engine_gen), (k_rows, k_losses, kernel_gen)
+
+
+@pytest.mark.parametrize("rates", [(0.25, 0.5), (0.0, 0.0)])
+def test_kernel_trainer_draws_as_the_engine(rates):
+    (rows, losses, engine_gen), (k_rows, k_losses, kernel_gen) = \
+        train_both(rates)
+    np.testing.assert_allclose(k_rows.numpy(), rows.numpy(), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(k_losses.numpy(), losses.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(kernel_gen.get_state(), engine_gen.get_state())
+    if rates == (0.0, 0.0):  # the batch orders alone
+        orders = torch.Generator().manual_seed(7)
+        for _ in range(EPOCHS):
+            torch.rand((C, N), generator=orders)
+        assert torch.equal(kernel_gen.get_state(), orders.get_state())
+
+
+def test_kernel_trainer_spans_each_step():
+    model, params, images, labels, mask = make_case((0.25, 0.5))
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        kernel_local_train(params, images, labels, mask,
+                           torch.Generator().manual_seed(7),
+                           learning_rate=LR, local_epochs=EPOCHS,
+                           compute_dtype=torch.float32)
+    names = [s.name for s in tracing.spans()]
+    tracing.clear()
+    assert names == ["forward", "backward", "optimizer"] * (EPOCHS * STEPS)
+
+
+class CudaStandIn:
+    """What the rule reads of a CUDA tensor, where there is no card."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, shape, dtype=torch.float32):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    def dim(self):
+        return len(self.shape)
+
+
+IMAGES = (C, N, 1, 28, 28)
+
+
+@pytest.mark.parametrize("case, spec, images, admitted", [
+    ("admitted", {}, CudaStandIn(IMAGES), True),
+    ("batch 16", {"batch_size": 16}, CudaStandIn(IMAGES), False),
+    ("weight decay", {"weight_decay": 0.01}, CudaStandIn(IMAGES), False),
+    ("label smoothing", {"label_smoothing": 0.1}, CudaStandIn(IMAGES),
+     False),
+    ("a CPU tensor", {}, torch.zeros(IMAGES), False),
+    ("bf16 images", {}, CudaStandIn(IMAGES, torch.bfloat16), False),
+    ("9 channels", {}, CudaStandIn((C, N, 9, 28, 28)), False),
+    ("32x32 images", {}, CudaStandIn((C, N, 1, 32, 32)), False),
+    pytest.param("on the card", {}, None, True, marks=pytest.mark.cuda),
+])
+def test_kernel_trainer_rule(case, spec, images, admitted):
+    model = create_model("simple_cnn", num_classes=10)
+    spec = TrainSpec(**{"learning_rate": LR, "local_epochs": EPOCHS,
+                        "batch_size": B, **spec})
+    if images is not None:
+        assert kernel_trainer_takes(model, spec, images) is admitted
+        return
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    # The engine's trainer on the card: one kernel-trainer call, 16
+    # launches a step, the step's three spans each step.
+    model, params, images, labels, mask = make_case((0.25, 0.5), "cuda")
+    assert kernel_trainer_takes(model, spec, images)
+    local_train = make_local_train_fn(model, spec, N)
+    for fn in DRAWN_DROPOUT_STEP_KERNELS:
+        fn.launches = 0
+    calls = kernel_local_train.calls
+    gen = torch.Generator("cuda").manual_seed(7)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        rows, losses = local_train(params, {"image": images, "label": labels},
+                                   mask, gen)
+    names = [s.name for s in tracing.spans()]
+    tracing.clear()
+    steps = EPOCHS * STEPS
+    assert kernel_local_train.calls == calls + 1
+    launches = {fn.__name__: fn.launches for fn in DRAWN_DROPOUT_STEP_KERNELS}
+    assert launches == {fn.__name__: k * steps
+                        for fn, k in DRAWN_DROPOUT_STEP_KERNELS.items()}
+    assert sum(launches.values()) == LAUNCHES_PER_DROPOUT_STEP * steps
+    assert names == ["forward", "backward", "optimizer"] * steps
+    assert bool(torch.isfinite(rows).all()) and bool(
+        torch.isfinite(losses).all())
+    assert rows.shape == (C, params.numel()) and losses.shape == (C,)
