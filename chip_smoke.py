@@ -27,10 +27,11 @@ paths and fails loudly on anything wrong. Phases, in order:
    ``torch.mean``'s share of ``gram()``.
 4. Sorted-reduce kernel against its plain version (``torch.sort``, then a
    row pick or a mean) at [100, 421,642], at ragged shapes from [1, 1000]
-   to [1024, 2049], and at [100, 8,000,000], in both modes (trim 10 at
-   C=100). Requires the median equal, the trimmed mean within
-   1e-6 * max|U|, two calls bitwise equal, and NaN / +-inf ordered as
-   ``torch.sort`` orders them; times both with CUDA events.
+   to [1024, 2049], at [100, 8,000,000] (trim 10 at C=100) and at the
+   ResNet-50 cell's [20, 23,917,832] (trim 2), in both modes. Requires
+   the median equal, the trimmed mean within 1e-6 * max|U|, two calls
+   bitwise equal, and NaN / +-inf ordered as ``torch.sort`` orders them;
+   times both with CUDA events.
 5. Krum north star: ``bench.build_engine("cuda")`` at the full constants
    (100 clients x 600 samples, batch 32, 2 local epochs, Krum f=20, bf16
    compute); one warm-up round and 3 timed rounds. Requires finite losses,
@@ -164,6 +165,9 @@ SCALED_ROWS = 20  # rows scaled x10 in one Gram input (R3's attack)
 SORT_RAGGED_SHAPES = [(1, 1000), (2, 1000), (7, 1000), (65, 4099),
                       (128, 3001), (130, 3001), (1024, 2049)]
 SORT_BIG_SHAPE = (100, 8_000_000)  # the JAX record's (docs/performance.md)
+#: the ResNet-50 cell's trimmed mean: 20 clients, D = 23,917,832, trim 2
+SORT_RESNET_SHAPE = (20, 23_917_832)
+SORT_RESNET_TRIM = 2
 REL_TOL = 1e-5
 SORT_REL_TOL = 1e-6  # trimmed mean: f32 sums in another order
 GEOMED_REL_TOL = 1e-5
@@ -602,18 +606,19 @@ def phase_sorted_reduce_kernel() -> dict:
           f"({int(got.isnan().sum())} NaN, {int(got.isinf().sum())} inf)")
 
     times = {}
-    for shape, iters in ((MAIN_SHAPE, 20), (SORT_BIG_SHAPE, 5)):
+    for shape, trim, iters in ((MAIN_SHAPE, 10, 20), (SORT_BIG_SHAPE, 10, 5),
+                               (SORT_RESNET_SHAPE, SORT_RESNET_TRIM, 5)):
         u = main if shape == MAIN_SHAPE else torch.randn(
             shape, generator=gen, device="cuda")
-        if shape == SORT_BIG_SHAPE:
+        if shape != MAIN_SHAPE:
             for mode in ("median", "trimmed"):
-                check_sorted_reduce(u, mode, 10)
+                check_sorted_reduce(u, mode, trim)
         for mode in ("median", "trimmed"):
-            def kern(x, mode=mode):
-                return sorted_reduce(x, mode, 10)
+            def kern(x, mode=mode, trim=trim):
+                return sorted_reduce(x, mode, trim)
 
-            def plain(x, mode=mode):
-                return sorted_reduce_plain(x, mode, 10)
+            def plain(x, mode=mode, trim=trim):
+                return sorted_reduce_plain(x, mode, trim)
 
             # In turns: plain, kernel, kernel, plain.
             plain_a = time_ms(plain, u, iters)
@@ -621,7 +626,7 @@ def phase_sorted_reduce_kernel() -> dict:
             kern_b = time_ms(kern, u, iters)
             plain_b = time_ms(plain, u, iters)
             times[shape, mode] = ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2)
-            print(f"[kernel] sorted_reduce {mode} {shape}: kernel "
+            print(f"[kernel] sorted_reduce {mode} {shape} trim {trim}: kernel "
                   f"{kern_a:.4f} / {kern_b:.4f} ms, plain {plain_a:.4f} / "
                   f"{plain_b:.4f} ms")
         del u

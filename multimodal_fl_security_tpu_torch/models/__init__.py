@@ -1,4 +1,5 @@
-"""Model families (SimpleCNN so far) over flat parameter buffers."""
+"""Model families over flat parameter buffers: SimpleCNN and ResNet-50 with
+GroupNorm."""
 
 from multimodal_fl_security_tpu_torch.models.registry import (  # noqa: F401
     MODELS,
@@ -6,3 +7,4 @@ from multimodal_fl_security_tpu_torch.models.registry import (  # noqa: F401
     init_model,
 )
 from multimodal_fl_security_tpu_torch.models import simple_cnn  # noqa: F401
+from multimodal_fl_security_tpu_torch.models import resnet  # noqa: F401

@@ -31,6 +31,14 @@ from torch import nn
 from multimodal_fl_security_tpu_torch.core.pytrees import FlatLayout
 from multimodal_fl_security_tpu_torch.models.registry import MODELS
 
+#: a segment prefix -> its flax module (the default fused stem)
+JAX_MODULES = {
+    "conv1": "ConvPoolFused_0",
+    "conv2": "Conv_0",
+    "fc1": "Dense_0",
+    "fc2": "Dense_1",
+}
+
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -100,6 +108,11 @@ class SimpleCNN(nn.Module):
                 ("fc2.weight", (self.num_classes, self.hidden_dim)),
             ])
         return self._layouts[in_channels]
+
+    def jax_path(self, name: str) -> Tuple[str, ...]:
+        """The flax parameter path of the segment ``name``."""
+        prefix, leaf = name.split(".")
+        return (JAX_MODULES[prefix], "bias" if leaf == "bias" else "kernel")
 
     def forward(self, params: torch.Tensor, x: torch.Tensor,
                 train: bool = False,

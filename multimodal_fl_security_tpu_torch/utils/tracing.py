@@ -30,7 +30,10 @@ The spans, each timing the work where it happens: ``local_train``,
 ``attack`` and ``aggregate`` around the three layers of
 ``RoundEngine.run_round``, and, inside ``local_train``, ``forward`` (the
 model and the loss; in the kernel trainer also the step's draws and
-gathers), ``backward`` and ``optimizer`` for every local step.
+gathers), ``backward`` and ``optimizer`` for every local step. A model may
+split its own step further: ResNet's stages (``models/resnet.py``) are
+spans inside ``forward`` and, opened and closed from gradient hooks with
+:meth:`Tracer.open` and :meth:`Tracer.close`, inside ``backward``.
 """
 
 from __future__ import annotations
@@ -89,12 +92,7 @@ class _Open:
         return self.record
 
     def __exit__(self, *exc):
-        rec = self.record
-        if rec._events is not None:
-            _, end, stream = rec._events
-            end.record(stream)
-        rec.end_ns = time.time_ns()
-        self.tracer._open.remove(rec.id)
+        self.tracer.close(self.record)
         return False
 
 
@@ -122,11 +120,19 @@ class Tracer:
     def span(self, name: str, device: torch.device):
         """A context manager around work on ``device``: a record while a
         profiler session records, else the shared no-op."""
+        rec = self.open(name, device)
+        return _OFF if rec is None else _Open(self, rec)
+
+    def open(self, name: str, device: torch.device) -> Optional[Span]:
+        """Opens a span whose end :meth:`close` marks, for edges that no
+        ``with`` block encloses, such as two gradient hooks; its parent is
+        the innermost span open. None while tracing is off or past
+        ``max_spans``."""
         if not _enabled():
-            return _OFF
+            return None
         if len(self._records) >= self.max_spans:
             self.dropped += 1
-            return _OFF
+            return None
         rec = Span(name, self._ids, self._open[-1] if self._open else None,
                    self.round, time.time_ns())
         self._ids += 1
@@ -136,7 +142,17 @@ class Tracer:
             rec._events[0].record(stream)
         self._records.append(rec)
         self._open.append(rec.id)
-        return _Open(self, rec)
+        return rec
+
+    def close(self, rec: Optional[Span]) -> None:
+        """Ends a span that :meth:`open` returned; None is a no-op."""
+        if rec is None:
+            return
+        if rec._events is not None:
+            _, end, stream = rec._events
+            end.record(stream)
+        rec.end_ns = time.time_ns()
+        self._open.remove(rec.id)
 
     def _event(self) -> torch.cuda.Event:
         return (self._pool.pop() if self._pool
@@ -167,6 +183,7 @@ class Tracer:
 
 
 TRACER = Tracer()
+enabled = _enabled
 span = TRACER.span
 spans = TRACER.spans
 clear = TRACER.clear
