@@ -15,8 +15,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
    the bf16 forward, the conv gradients and fc1's forward and backward, and
    the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
-   ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``,
-   ``dense_fwd_tf32`` and ``dense_bwd_tf32``).
+   ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``, ``stem_wgrad_tf32`` (sparse
+   mma), ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and ``dense_bwd_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires
@@ -57,9 +57,10 @@ paths and fails loudly on anything wrong. Phases, in order:
    activations ([100, 32, 1, 28, 28] images; conv2, fc1 and fc2 forward
    and backward; CE; SGD at [100, 421,642]), in f32 with TF32 off (max
    |kernel - plain| <= 1e-5 * max|plain|; the stem's and conv2's forward,
-   conv2's weight and input gradients and fc1's forward and backward, on
-   ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``,
-   ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and ``dense_bwd_tf32``, are
+   the weight gradients, conv2's input gradient and fc1's forward and
+   backward, on ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``stem_wgrad_tf32``,
+   ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
+   ``dense_bwd_tf32``, are
    held at that tolerance to the exact (f64) results instead, their errors
    there to at most 4x the f32 plain versions', and their distances from
    the plain versions printed) and in
@@ -71,7 +72,7 @@ paths and fails loudly on anything wrong. Phases, in order:
    computes the same product (cuDNN, ``baddbmm``, TF32 off; three timings
    of it, the median kept, the spread printed): conv2's forward and
    gradient kernels in both dtypes, the stem's weight gradient in f32
-   (``conv_wgrad``, in the row ``conv_wgrad_stem``), the stem's forward
+   (``stem_wgrad_tf32``, held to f64 like conv2's), the stem's forward
    also in f32 (``stem_fwd_f32``), fc1's f32 forward and backward
    (``dense_fwd_tf32``, ``dense_bwd_tf32``), fc2's forward and backward in
    the bf16 path's kernels, the rest in bf16, the stem's bf16 weight gradient
@@ -81,9 +82,10 @@ paths and fails loudly on anything wrong. Phases, in order:
    compute the same outputs (a reference, not a single library call);
    (b) ``fused_kernel_bench.run_check()`` (kernel path against
    ``mirror_local_train`` within 1e-4 at f32; per step 1 each of
-   ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``conv_wgrad`` (the stem's),
+   ``stem_fwd_f32``, ``conv2_fwd_tf32``, ``stem_wgrad_tf32``,
    ``conv2_wgrad_tf32``, ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
-   ``dense_bwd_tf32``, fc2 on the CUDA-core kernels, no ``conv_fwd``); (c)
+   ``dense_bwd_tf32``, fc2 on the CUDA-core kernels, no ``conv_fwd``);
+   (c)
    ``run_bench()`` at full width in
    bf16:
    finite parameters, 12 launches per step x 38 steps, by kernel 38 each
@@ -260,7 +262,8 @@ TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
               "stem_wgrad_tc_kernel",
               "conv2_dgrad_tc_kernel", "dense_fwd_tc_kernel",
               "dense_bwd_tc_kernel", "stem_raw_tf32_kernel",
-              "conv2_wgrad_tf32_kernel", "conv2_dgrad_tf32_kernel",
+              "conv2_wgrad_tf32_kernel", "stem_wgrad_tf32_kernel",
+              "conv2_dgrad_tf32_kernel",
               "dense_fwd_tf32_kernel", "dense_bwd_tf32_kernel",
               "conv2_fwd_tf32_kernel")
 #: the instruction phase 2 requires in a 3xTF32 kernel's SASS: HGMMA for
@@ -268,6 +271,7 @@ TC_KERNELS = ("gram_tc_kernel", "stem_raw_tc_kernel", "conv2_fwd_tc_kernel",
 TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
             "conv2_fwd_tf32_kernel": "HMMA",
             "conv2_wgrad_tf32_kernel": "HMMA",
+            "stem_wgrad_tf32_kernel": "HMMA",
             "conv2_dgrad_tf32_kernel": "HMMA",
             "dense_fwd_tf32_kernel": "HMMA",
             "dense_bwd_tf32_kernel": "HMMA"}
@@ -1139,13 +1143,20 @@ def phase_fused_kernels() -> dict:
                                                     got, ref, dt)
             errs["conv_dgrad", dt] = held(
                 "conv2 dgrad [100, 32, 32, 14, 14]", dh1, plain_dh1, dt)
-        for name, got, ref in zip(("dW", "db"), wgrad(
-                cc.conv_wgrad, x, dh1, h1, a1, v["conv1.weight"],
-                v["conv1.bias"], dt), wgrad(
-                cc.conv_wgrad_plain, x, dh1, h1, a1, v["conv1.weight"],
-                v["conv1.bias"], dt)):
-            errs["stem_wgrad", dt, name] = held(f"stem wgrad {name}", got,
-                                                ref, dt)
+        got1, plain1 = (wgrad(fn, x, dh1, h1, a1, v["conv1.weight"],
+                              v["conv1.bias"], dt)
+                        for fn in (cc.conv_wgrad, cc.conv_wgrad_plain))
+        if dt == f32:
+            # stem_wgrad_tf32's 3xTF32 sums: held to the exact gradient.
+            exact = wgrad_f64(x, dh1, h1, a1, v["conv1.weight"])
+            for name, got, ref, pl in zip(("dW", "db"), got1, exact, plain1):
+                errs["stem_wgrad", dt, name], \
+                    errs["stem_wgrad_vs_plain", dt, name] = held_f64(
+                        f"stem wgrad {name}", got, ref, pl)
+        else:
+            for name, got, ref in zip(("dW", "db"), got1, plain1):
+                errs["stem_wgrad", dt, name] = held(f"stem wgrad {name}",
+                                                    got, ref, dt)
         timed[dt] = dict(h1=h1, a1=a1, h3=h3, a3=a3, f3=f3, h4=h4,
                          logits=logits, dl=dl, dz4=dz4, dh3=dh3, dh1=dh1)
 
@@ -1270,10 +1281,9 @@ def phase_fused_kernels() -> dict:
             4 * c * 32 * 3136 * 128, f32),
         **conv_grads(f32, "conv2_wgrad_tf32", "conv2_dgrad_tf32"),
         **conv_grads(bf16, "conv_wgrad_tc", "conv_dgrad_tc"),
-        # The stem's weight gradient in f32: the CUDA-core kernel
-        # (conv_wgrad; until conv2's moved to conv2_wgrad_tf32, this row's
-        # name was conv2's).
-        "conv_wgrad_stem": (
+        # The stem's weight gradient in f32 (3xTF32, sparse on the tensor
+        # cores), at [100, 32, 1, 28, 28] beside conv2d_weight.
+        "stem_wgrad_tf32": (
             lambda: cc.conv_wgrad(x, t32["dh1"], t32["h1"], t32["a1"], gwc1,
                                   gbc1),
             lambda: cc.conv_wgrad_plain(x, t32["dh1"], t32["h1"], t32["a1"],
@@ -1338,7 +1348,7 @@ def phase_fused_kernels() -> dict:
                "stem_fwd_tc": ("stem", bf16),
                "dense_fwd_tc": ("dense_fwd", bf16),
                "conv2_wgrad_tf32": ("conv_wgrad", f32, "dW"),
-               "conv_wgrad_stem": ("stem_wgrad", f32, "dW"),
+               "stem_wgrad_tf32": ("stem_wgrad", f32, "dW"),
                "conv2_dgrad_tf32": ("conv_dgrad", f32),
                "stem_fwd_f32": ("stem", f32),
                "dense_fwd_tf32": ("dense_fwd", f32),
@@ -1474,10 +1484,9 @@ def phase_fused_path() -> dict:
     f32_path = check["kernel_launches"]
     return {**bench["launches"], **bench["kernel_launches"],
             **{k: f32_path[k] for k in ("stem_fwd_f32", "conv2_fwd_tf32",
-                                        "conv2_wgrad_tf32",
+                                        "conv2_wgrad_tf32", "stem_wgrad_tf32",
                                         "conv2_dgrad_tf32", "dense_fwd_tf32",
-                                        "dense_bwd_tf32")},
-            "conv_wgrad_stem": f32_path["conv_wgrad"]}
+                                        "dense_bwd_tf32")}}
 
 
 def phase_fused_f32_call() -> dict:
@@ -1496,7 +1505,7 @@ def phase_fused_f32_call() -> dict:
           f"kernel {res['kernel_launches']}")
     steps = 38
     want = {"stem_fwd_f32": steps, "conv2_fwd_tf32": steps,
-            "conv_wgrad": steps,
+            "stem_wgrad_tf32": steps,
             "conv2_wgrad_tf32": steps, "conv2_dgrad_tf32": steps,
             "dense_fwd": steps, "dense_fwd_tf32": steps, "dense_bwd": steps,
             "dense_bwd_tf32": steps}
@@ -1676,13 +1685,15 @@ def kernel_counts(f32_steps: int = 0, tc_steps: int = 0) -> dict:
     gradients and one input gradient, and fc1's and fc2's forward and
     backward; in f32 conv2 and fc1 on the 3xTF32 kernels (conv2_fwd_tf32,
     conv2_wgrad_tf32, conv2_dgrad_tf32, dense_fwd_tf32, dense_bwd_tf32),
-    the stem's forward on stem_fwd_f32 and the rest on the CUDA-core
-    kernels, none on conv_fwd; in bf16 all on the tensor-core ones but
-    fc2's (f32 weights)."""
+    the stem's forward on stem_fwd_f32, its weight gradient on
+    stem_wgrad_tf32 and fc2 on the CUDA-core kernels, none on conv_fwd;
+    in bf16 all on the tensor-core ones but fc2's (f32
+    weights)."""
     return {"conv_fwd": 0, "conv2_fwd_tc": tc_steps,
             "conv2_fwd_tf32": f32_steps, "stem_fwd_tc": tc_steps,
             "stem_fwd_f32": f32_steps, "stem_raw_tc": 0, "stem_raw_tf32": 0,
-            "conv_wgrad": f32_steps, "conv2_wgrad_tf32": f32_steps,
+            "conv2_wgrad_tf32": f32_steps,
+            "stem_wgrad_tf32": f32_steps,
             "conv_wgrad_tc": 2 * tc_steps,
             "conv_dgrad_tc": tc_steps, "conv2_dgrad_tf32": f32_steps,
             "dense_fwd": f32_steps + tc_steps, "dense_fwd_tc": tc_steps,
@@ -2081,8 +2092,7 @@ def main() -> None:
     # Each path ran with the counts set to 0 just before it. Local
     # training's kernels: their launches in R1-R5's rounds (the kernel
     # trainer), by kernel where a wrapper runs several.
-    trainer = {**robust["trainer"], **robust["kernels"],
-               "conv_wgrad_stem": robust["kernels"]["conv_wgrad"]}
+    trainer = {**robust["trainer"], **robust["kernels"]}
     gram_row["launches"] = north_star + robust["gram"]
     sort_row["launches"] = robust["sorted_reduce"]
     for kernel, row in fused_rows.items():

@@ -24,32 +24,29 @@
 //    stem_fwd_tc for bf16 on the tensor cores, conv2_fwd_tf32 for f32 in
 //    3xTF32 and stem_fwd_f32 for f32 on the CUDA cores (their sections
 //    below).
-//  - conv_wgrad: dW and db of one client from the layer's input and the
-//    pooled output's gradient, routed through the argmax and the relu inside
-//    the kernel. The gradient reaches the 3x3 kernel directly, which is the
-//    fold P^T of the four embedded copies. Sums run over the batch in a fixed
-//    order, with no atomics: two calls are bitwise equal.
-//  - conv2_wgrad_tc, stem_wgrad_tc: the same gradients for the compute
-//    dtype bf16, on the tensor cores (see their section below), and
-//    conv2_dgrad_tc conv2's input gradient (the stem needs none).
-//  - conv2_wgrad_tf32, conv2_dgrad_tf32: conv2's weight and input
-//    gradients for f32 on the tensor cores in 3xTF32 (their sections
-//    below); conv_wgrad serves the stem's weight gradient in f32.
+//  - The weight gradients: dW and db of one client from the layer's input
+//    and the pooled output's gradient, routed through the argmax and the
+//    relu inside the kernel. The gradient reaches the 3x3 kernel directly,
+//    which is the fold P^T of the four embedded copies. Sums run over the
+//    batch in a fixed order, with no atomics: two calls are bitwise equal.
+//    conv2_wgrad_tc and stem_wgrad_tc for the compute dtype bf16 on the
+//    tensor cores, conv2_wgrad_tf32 and stem_wgrad_tf32 for f32 in 3xTF32
+//    (their sections below); no kernel takes another geometry.
+//  - conv2_dgrad_tc, conv2_dgrad_tf32: conv2's input gradient in bf16 and
+//    in 3xTF32 (the stem needs none).
 //  - client_stem_raw.cu's kernels take K3's own geometry.
 //
-// What bounds the CUDA-core kernels: they run f32 FMA with both operands
-// read from shared memory, two shared-memory words per FMA, so
-// shared-memory bandwidth (~7e12 words/s over the card) bounds them, far
-// above the HBM and tensor-core floors. Design: one block per (client,
-// sample) for conv_fwd, with the client's weights and the sample staged
-// once in shared memory; one block per (client, output channel) for the
-// weight gradient, whose threads split the weights and the batch and add
-// their partial sums in a fixed order.
+// What bounds conv_fwd: it runs f32 FMA with both operands read from shared
+// memory, two shared-memory words per FMA, so shared-memory bandwidth
+// (~7e12 words/s over the card) bounds it, far above the HBM and
+// tensor-core floors. Design: one block per (client, sample), with the
+// client's weights and the sample staged once in shared memory.
 
 #include <cooperative_groups.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdlib>
 #include <type_traits>
 
 #include "client_common.cuh"
@@ -110,80 +107,6 @@ conv_fwd_kernel(MftView x, MftView w, MftView out, ConvGeom g) {
   }
 }
 
-// One block per (output channel, client). Thread t < nwb * splits sums
-// weight t % nwb (the bias when it is nw) over samples [n0, n1) of split
-// t / nwb; the splits are then added in order.
-__global__ void conv_wgrad_kernel(MftView x, MftView dp, MftView h,
-                                  MftView arg, MftView gw, MftView gb,
-                                  ConvGeom g, int splits) {
-  extern __shared__ float smem[];
-  const int co = blockIdx.x;
-  const int c = blockIdx.y;
-  const int pw = g.ow / 2;
-  const int per = (g.oh / 2) * pw;
-  const int m = g.batch * per;
-  const int nw = g.k * g.k * g.cin;
-  const int nwb = nw + 1;
-  float* gs = smem;        // pooled gradient through the relu, [n][oi][oj]
-  float* red = gs + m;     // [splits][nwb]
-  uint8_t* as = reinterpret_cast<uint8_t*>(red + splits * nwb);  // argmax
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int n = i / per;
-    const int r = i % per;
-    const int oi = r / pw;
-    const int oj = r % pw;
-    const float hv = mft_ld(h, mft_off(h, c, n, co, oi, oj));
-    gs[i] = hv > 0.f ? mft_ld(dp, mft_off(dp, c, n, co, oi, oj)) : 0.f;
-    as[i] = static_cast<uint8_t>(mft_ld(arg, mft_off(arg, c, n, co, oi, oj)));
-  }
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  if (t < nwb * splits) {
-    const int wi = t % nwb;
-    const int s = t / nwb;
-    const int n0 = s * g.batch / splits;
-    const int n1 = (s + 1) * g.batch / splits;
-    float acc = 0.f;
-    if (wi == nw) {
-      for (int i = n0 * per; i < n1 * per; ++i) acc += gs[i];
-    } else {
-      const int ci = wi % g.cin;  // weights in (kh, kw, ci) order, ci fastest
-      const int kw = (wi / g.cin) % g.k;
-      const int kh = wi / g.cin / g.k;
-      for (int n = n0; n < n1; ++n) {
-        for (int r = 0; r < per; ++r) {
-          const float gv = gs[n * per + r];
-          if (gv == 0.f) continue;  // the same branch across a split
-          const int q = as[n * per + r];
-          const int oy = 2 * (r / pw) + (q >> 1);
-          const int ox = 2 * (r % pw) + (q & 1);
-          const int iy = oy * g.stride - g.pad + kh;
-          const int ix = ox * g.stride - g.pad + kw;
-          if (iy < 0 || iy >= g.h || ix < 0 || ix >= g.w) continue;
-          acc += gv * mft_round(mft_ld(x, mft_off(x, c, n, ci, iy, ix)),
-                                g.cdt);
-        }
-      }
-    }
-    red[s * nwb + wi] = acc;
-  }
-  __syncthreads();
-  if (t < nwb) {
-    float sum = 0.f;
-    for (int s = 0; s < splits; ++s) sum += red[s * nwb + t];
-    sum = mft_round(sum, g.cdt);
-    if (t == nw) {
-      mft_st(gb, mft_off(gb, c, 0, co, 0, 0), sum);
-    } else {
-      const int ci = t % g.cin;
-      const int kw = (t / g.cin) % g.k;
-      const int kh = t / g.cin / g.k;
-      mft_st(gw, mft_off(gw, c, co, ci, kh, kw), sum);
-    }
-  }
-}
-
 // ------------------------------------------------------------ tensor cores
 //
 // The weight and input gradients for the compute dtype bf16, on Hopper's
@@ -208,8 +131,8 @@ __global__ void conv_wgrad_kernel(MftView x, MftView dp, MftView h,
 //    (kDgSamples samples, client) stages the client's weights once as
 //    [kh][kw][ci][co] bf16; A = the rows of the zero-bordered dZ tile
 //    [16 x 16, 64] shifted by (kh, kw).
-// dZ is built in shared memory from dp, h and the argmax as the CUDA-core
-// kernels build it, and rounded to bf16 (dp is bf16: exact). Every sum runs
+// dZ is built in shared memory from dp, h and the argmax (the pooled
+// gradient through the relu, placed at each window's argmax), and rounded to bf16 (dp is bf16: exact). Every sum runs
 // in a fixed order (mma's, then warps', then ranks', in order), with no
 // atomics: two calls are bitwise equal.
 //
@@ -1358,6 +1281,475 @@ conv2_dgrad_tc_kernel(MftView dp, MftView h, MftView arg, MftView w,
   }
 }
 
+// ------------------------------------------- the stem's weight gradient, f32
+//
+// stem_wgrad_tf32: stem_wgrad_tc's GEMM in f32, on Hopper's tensor cores in
+// 3xTF32 as conv2_wgrad_tf32 forms its products. It replaces, in f32, the
+// stem's weight gradient of fused_local_train (K4;
+// multimodal_fl_security_tpu/ops/fused_kernel.py:433, folded over w4's four
+// copies by fold_stem): dW[co, (kh, kw, ci)] and db[co] = sum over the dense
+// rows (n, oy, ox) of dZ[row, co] times the patch row [x taps, 1]. Per client
+// M = 32, N = 9 cin + 1 (-> NJP), K = B x 4 x the pooled windows (25,088 on
+// the main path).
+//  - dZ is sparse in a fixed pattern: a pooled window's four rows (row 4 w +
+//    q: position q of window w) hold its gradient at the argmax's q alone,
+//    so each pair of rows (q = 0, 1 and 2, 3) holds at most one nonzero.
+//    That is the tensor cores' 1:2 structured sparsity for TF32: A = dZ^T
+//    is staged as its nonzero halves [co][pair] with a 4-bit metadata
+//    nibble a pair (0x4 its first row, 0xE its second), and
+//    mma.sp.m16n8k16 runs each k16 step at the cost of a dense k8 one
+//    (its fragments' layouts, read on the card: mma_sp16816_tf32).
+//  - A cluster of kStfCluster blocks splits a client's samples; block 0 adds
+//    the partials through distributed shared memory, in rank order. Small
+//    blocks (4 warps, four an SM) keep 16 warps an SM for the staging's
+//    latency.
+//  - A block stages kStfWin pooled windows (kStfRows dense rows) at a time:
+//    dZ^T's halves as [co][pair] and the patch as [j][row], both with k
+//    contiguous, so that ldmatrix gives the TF32 A fragment and the B
+//    fragment (lane l: word l % 4 of row l / 4 of an 8 x 16-byte matrix).
+//    Rows are padded to 4 (mod 32) words: ldmatrix's eight row addresses
+//    fall on distinct banks.
+//  - A half-warp routes sixteen windows of one group of eight channels: one
+//    8-byte store of a window's two pairs a channel for hi and for lo
+//    (conflict-free) and one metadata byte. Thread t stages patch row t:
+//    the patch of x is built once a block, its rows on consecutive lanes.
+//    Column 9 cin is 1 in every chunk and each column past it reads one
+//    row of zeros, so both are written once: db comes out of the tensor
+//    cores beside dW. (Rows past the block's last window keep the ones;
+//    their dZ is 0.)
+//  - Every operand is split into hi = tf32(a) and lo = tf32(a - hi)
+//    (mft_tf32_rne) once, as it is staged; lo hi + hi lo + hi hi in f32 sums.
+//    Warp w takes k16 steps 2 w and 2 w + 1 of each chunk, each into a fresh
+//    accumulator: the tensor cores' sums do not round to nearest, and a
+//    fresh one keeps their truncation to the sixteen rows of one step. The
+//    sums then go up in f32 through short chains, so that no long chain of
+//    roundings builds up: the steps' into the chunk's, the chunks' into a
+//    group of kStfGroup, the groups' into the block's, the warps' in warp
+//    order and the ranks' in rank order, with no atomics: two calls are
+//    bitwise equal.
+//  - dp, h and the argmax come through a two-stage ring in shared memory,
+//    by async copies issued a chunk ahead, so that they are in flight
+//    through a chunk's staging and tensor-core steps; the taps (one input
+//    channel) are loaded into registers a chunk ahead. Each thread copies
+//    and reads back its own window and channels: no barrier guards a stage.
+// What bounds it: 191 MB of operands on the main path (dp and h f32, 80 MB
+// each; the argmax 20 MB; the images 10 MB): 0.057 ms at 3.35 TB/s. Its
+// dense GEMM is 7.7 GFLOP in 3xTF32 (0.016 ms at the TF32 rate), four times
+// the routed work, half of it skipped by the sparsity. What the design
+// leaves as the cost is the latency of each block's chunk of loads and its
+// staging (the routing, the splits, the shared-memory stores): without the
+// loads the staging and the tensor-core steps take about half the kernel's
+// time, the loads alone somewhat more.
+
+constexpr int kStfThreads = 128;  // 4 warps
+constexpr int kStfWarps = kStfThreads / 32;
+constexpr int kStfCluster = 8;                // blocks splitting a client
+constexpr int kStfWin = kStfThreads / 4;      // windows a chunk: 32
+constexpr int kStfRows = 4 * kStfWin;         // dense rows a chunk: 128
+constexpr int kStfRow = kStfRows + 4;         // patch row stride, floats
+constexpr int kStfZRow = 2 * kStfWin + 4;     // dZ^T row stride, floats
+constexpr int kStfSteps = kStfRows / 16 / kStfWarps;  // a warp's k16 steps
+constexpr int kStfPairs = kStfWin * kStemOut / kStfThreads;  // 8 channels
+constexpr int kStfGroup = 8;  // chunks whose sums are added before the total
+constexpr int kStfStages = 2;  // ring stages: chunks of dZ in flight, + 1
+// A ring stage, in bytes: dp and h [window][channel] f32 in rows of 36
+// words, the argmax [window][channel] in rows of 40 bytes (a phase's
+// windows on distinct banks).
+constexpr int kStfRawRow = kStemOut + 4;
+constexpr int kStfArgRow = kStemOut + 8;
+constexpr int kStfStageH = kStfWin * kStfRawRow * 4;
+constexpr int kStfStageArg = 2 * kStfStageH;
+constexpr int kStfStage = kStfStageArg + kStfWin * kStfArgRow;
+// Metadata words: [k16 step][m16 tile][row gq][half of the step's columns],
+// 34 words a step: a half-warp's byte stores (four steps) on distinct banks.
+constexpr int kStfMetaStep = 34;
+constexpr int kStfMeta = kStfRows / 16 * kStfMetaStep;
+
+// The patch's rows [j][row] held: the 9 cin taps, the ones and one row of
+// zeros that every column past the ones reads (at one input channel 11;
+// else all NJP).
+template <int NJP>
+__host__ __device__ constexpr int stem_tf32_prows() {
+  return NJP == 16 ? 11 : NJP;
+}
+
+template <int NJP>
+constexpr size_t stem_tf32_smem() {
+  return sizeof(float) * (2 * kStemOut * kStfZRow + kStfMeta +
+                          2 * stem_tf32_prows<NJP>() * kStfRow +
+                          kStemOut * NJP) +
+         kStfStages * kStfStage;
+}
+
+// Blocks an SM on the path: as many as its shared memory holds, at most
+// 16 warps (128 registers a thread).
+constexpr int kStfBySmem =
+    static_cast<int>(228 * 1024 / (stem_tf32_smem<16>() + 1024));
+constexpr int kStfBlocksPerSm =
+    kStfBySmem < 512 / kStfThreads ? kStfBySmem : 512 / kStfThreads;
+
+static_assert(kStfRow % 32 == 4 && kStfZRow % 32 == 4 && kStfPairs == 8,
+              "ldmatrix rows on distinct banks; channel groups");
+static_assert(kStfBlocksPerSm >= 1 && kStfStage % 16 == 0,
+              "a block fits an SM; 16-byte aligned stages");
+
+// 8 bytes from global src (8-byte aligned) to shared dst, of which the
+// first src_bytes are read and the rest zeroed; 0 reads nothing.
+__device__ __forceinline__ void stf_cp_async8(uint32_t dst, const void* src,
+                                              int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// d += a (16 x 16 with at most one nonzero in each pair of columns, given as
+// its 16 x 8 nonzero half; row-major) * b (16 x 8, column-major): tf32 in,
+// f32 sums. e: the pairs' metadata, from lanes 4 g and 4 g + 1 (selector
+// 0): lane 4 g's nibbles 0-3 for row g and 4-7 for row g + 8 over the
+// compressed columns 0-3, lane 4 g + 1's over columns 4-7; a nibble is 0x4
+// for a pair's first element, 0xE for its second. The b fragment: lane
+// (g, t) holds rows t, t + 4, t + 8, t + 12 of column g.
+__device__ __forceinline__ void mma_sp16816_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[4],
+                                                 uint32_t e) {
+  asm volatile(
+      "mma.sp.sync.aligned.m16n8k16.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9, %10, %11}, "
+      "{%0, %1, %2, %3}, %12, 0x0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "r"(b[2]), "r"(b[3]), "r"(e));
+}
+
+// Grid (client, rank); rank r sums samples [r B / kStfCluster, (r + 1) B /
+// kStfCluster) of its client. NJP: the 9 cin columns and the ones, padded
+// to 16 (one input channel, the path's) or 80 (up to 8). Warp w: both m16
+// tiles of the 32 output channels, every n8 tile of the NJP columns, over
+// its k16 steps of each chunk. kDenseZ: dp, h and the argmax are NHWC f32
+// slabs (arg bytes), 16-byte aligned, with the samples back to back, as
+// conv2's input gradient and the stem's f32 forward write them: a rank's
+// windows are one run of memory, copied into the ring from a pointer that
+// steps a chunk at a time. Otherwise they are read one element at a time,
+// of any strides and types, and stored into the ring. At one input channel
+// the next chunk's taps are loaded into registers while the tensor cores
+// run (the patch row's place steps a chunk at a time, its nine taps at
+// fixed offsets); at more, the patch is loaded as it is staged.
+template <int NJP, bool kDenseZ>
+__global__ void __cluster_dims__(1, kStfCluster, 1)
+    __launch_bounds__(kStfThreads, NJP == 16 ? kStfBlocksPerSm : 1)
+stem_wgrad_tf32_kernel(MftView x, MftView dp, MftView h, MftView arg,
+                       MftView gw, MftView gb, ConvGeom g) {
+  constexpr bool kOne = NJP == 16;  // one input channel: 9 taps
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* zh = reinterpret_cast<float*>(smem_raw);  // [co][pair]
+  float* zl = zh + kStemOut * kStfZRow;
+  uint32_t* meta = reinterpret_cast<uint32_t*>(zl + kStemOut * kStfZRow);
+  float* ph = reinterpret_cast<float*>(meta + kStfMeta);  // [j][row]
+  constexpr int kPRows = stem_tf32_prows<NJP>();
+  float* pl = ph + kPRows * kStfRow;
+  float* red = pl + kPRows * kStfRow;  // [co][NJP]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(red + kStemOut * NJP);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int li = lane >> 3, lr = lane & 7;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int cin = kOne ? 1 : g.cin;
+  const int nj = 9 * cin;
+  const int pw = g.ow / 2, ph2 = g.oh / 2;
+  const int per = ph2 * pw;
+  const int n0 = rank * g.batch / kStfCluster;
+  const int total = ((rank + 1) * g.batch / kStfCluster - n0) * per;
+  // The dZ window and channels this thread routes (a half-warp: sixteen
+  // windows of one channel group); its patch row is t.
+  const int zw = lane % 16 + 16 * (warp % 2);
+  const int zc = 8 * (2 * (warp / 2) + lane / 16);
+  // j / cin as (j * inv) >> 16: exact for j < 80, cin <= 8
+  const int inv = (65536 + cin - 1) / cin;
+  // The ones column and the zero row, the same in every chunk.
+  for (int i = t; i < 2 * kStfRows; i += kStfThreads) {
+    const int at = (nj + i / kStfRows) * kStfRow + i % kStfRows;
+    ph[at] = i < kStfRows ? 1.f : 0.f;
+    pl[at] = 0.f;
+  }
+  // ldmatrix: A (dZ^T's nonzero halves) matrix li is channels 8 (li & 1) +
+  // [0, 8), pairs 4 (li >> 1) + [0, 4); B (the patch) matrix li is rows
+  // 4 li + [0, 4) of an n8 tile's eight columns (a column past the ones
+  // reads the zero row): b0 .. b3.
+  const uint32_t a_off = static_cast<uint32_t>(
+      (((li & 1) * 8 + lr) * kStfZRow + (li >> 1) * 4) * sizeof(float));
+  auto b_off = [&](int nt) {  // n8 tile nt's column for this lane
+    const int j = min(8 * nt + lr, nj + 1);
+    return static_cast<uint32_t>((j * kStfRow + li * 4) * sizeof(float));
+  };
+  const uint32_t zh_addr = mft_smem_addr(zh) + a_off;
+  const uint32_t zl_addr = mft_smem_addr(zl) + a_off;
+  const uint32_t ph_addr = mft_smem_addr(ph);
+  const uint32_t pl_addr = mft_smem_addr(pl);
+  constexpr uint32_t kZTile16 = 16 * kStfZRow * sizeof(float);
+  // This lane's metadata word of a k16 step and m16 tile (lanes 4 g + 2 and
+  // 4 g + 3 read one that the instruction ignores).
+  const uint32_t* meta_at = meta + gq * 2 + (tq & 1);
+
+  // This thread's window of the rank's first chunk, on the dense path: a
+  // pointer into each of dp, h and arg (chunk i is kStfWin windows on).
+  const long long zoff = static_cast<long long>(zw) * kStemOut + zc;
+  const float* zdp = mft_slab<float>(dp, c, n0) + zoff;
+  const float* zh_in = mft_slab<float>(h, c, n0) + zoff;
+  const uint8_t* zarg = mft_slab<uint8_t>(arg, c, n0) + zoff;
+  // The patch row's window (n, oi, oj), stepped kStfWin windows a chunk,
+  // and, at one input channel, its nine taps' offsets from the row's first.
+  int pn = n0 + (t / 4) / per, poi = (t / 4) % per / pw, poj = (t / 4) % pw;
+  const int pdy = (t % 4) / 2 - g.pad, pdx = t % 2 - g.pad;
+  // (In-sample offsets fit 32 bits: mft_stem_wgrad_tf32_takes.)
+  const int xs3 = static_cast<int>(x.st[3]), xs4 = static_cast<int>(x.st[4]);
+  int tap_off[kOne ? 9 : 1];
+#pragma unroll
+  for (int j = 0; j < (kOne ? 9 : 1); ++j) {
+    tap_off[j] = (j / 3) * xs3 + (j % 3) * xs4;
+  }
+  auto step_row = [&]() {
+    poj += kStfWin;
+    while (poj >= pw) {
+      poj -= pw;
+      if (++poi == ph2) poi = 0, ++pn;
+    }
+  };
+  // Tap j of patch row t at the row's current window, or 0 outside the
+  // image or past the rank's last window (live).
+  auto tap = [&](int j, bool live) {
+    const int kk = kOne ? j : (j * inv) >> 16;  // kh * 3 + kw
+    const int ci = kOne ? 0 : j - kk * cin;
+    const int iy = 2 * poi + pdy + kk / 3, ix = 2 * poj + pdx + kk % 3;
+    if (!live || iy < 0 || iy >= g.h || ix < 0 || ix >= g.w) return 0.f;
+    const float* xs = mft_slab<float>(x, c, pn);
+    return kOne ? xs[(2 * poi + pdy) * xs3 + (2 * poj + pdx) * xs4 +
+                     tap_off[kOne ? j : 0]]
+                : xs[ci * x.st[2] + iy * x.st[3] + ix * x.st[4]];
+  };
+  auto put = [&](int j, float v) {
+    const float hi = mft_tf32_rne(v);
+    ph[j * kStfRow + t] = hi;
+    pl[j * kStfRow + t] = mft_tf32_rne(v - hi);
+  };
+
+  // This thread's places in a ring stage: its window's eight channels.
+  const int raw_at = zw * kStfRawRow + zc;                 // floats
+  const int arg_at = kStfStageArg + zw * kStfArgRow + zc;  // bytes
+  const uint32_t ring_addr = mft_smem_addr(ring);
+  // Chunk i's windows (this thread's eight channels) into ring stage s:
+  // async copies on the dense path, else loads and stores.
+  auto issue = [&](int i, int s) {
+    const int w0 = i * kStfWin;
+    const bool live = w0 + zw < total;
+    unsigned char* stage = ring + s * kStfStage;
+    if (kDenseZ) {
+      const uint32_t st = ring_addr + s * kStfStage;
+      const long long o = static_cast<long long>(w0) * kStemOut;
+      const int b = live ? 16 : 0;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        mft_cp_async16(st + (raw_at + 4 * k) * 4, zdp + (live ? o : 0) + 4 * k,
+                       b);
+        mft_cp_async16(st + kStfStageH + (raw_at + 4 * k) * 4,
+                       zh_in + (live ? o : 0) + 4 * k, b);
+      }
+      stf_cp_async8(st + arg_at, zarg + (live ? o : 0), live ? 8 : 0);
+    } else {
+      const int wi = w0 + zw;
+      const int n = n0 + (live ? wi / per : 0), p = live ? wi % per : 0;
+      const int oi = p / pw, oj = p % pw;
+      float* rd = reinterpret_cast<float*>(stage) + raw_at;
+      float* rh = reinterpret_cast<float*>(stage + kStfStageH) + raw_at;
+#pragma unroll
+      for (int e = 0; e < kStfPairs; ++e) {
+        const int co = zc + e;
+        rd[e] = live ? mft_ld(dp, mft_off(dp, c, n, co, oi, oj)) : 0.f;
+        rh[e] = live ? mft_ld(h, mft_off(h, c, n, co, oi, oj)) : 0.f;
+        stage[arg_at + e] = static_cast<unsigned char>(
+            live ? mft_ld(arg, mft_off(arg, c, n, co, oi, oj)) : 0.f);
+      }
+    }
+  };
+  // The next chunk's taps (one input channel), in registers.
+  float xv[kOne ? 9 : 1];
+  auto load_taps = [&](int i) {
+    if (kOne) {
+      const bool plive = i * kStfWin + t / 4 < total;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) xv[j] = tap(j, plive);
+    }
+  };
+
+  // This thread's metadata bytes: window zw's place in its k16 step's
+  // words (half = which four pairs, then its byte), channel co's word (row
+  // gq of m16 tile co / 16) and half-word (row gq or gq + 8).
+  unsigned char* meta_b = reinterpret_cast<unsigned char*>(meta) +
+                          (zw / 4 * kStfMetaStep + zw % 4 / 2) * 4 + zw % 2;
+  // The block's sums, and those of the current group of kStfGroup chunks.
+  float acc[2][NJP / 8][4] = {}, grp[2][NJP / 8][4] = {};
+  int grouped = 0;
+  const int chunks = (total + kStfWin - 1) / kStfWin;
+#pragma unroll
+  for (int i = 0; i < kStfStages - 1; ++i) {
+    if (i < chunks) issue(i, i);
+    mft_cp_async_commit();
+  }
+  if (chunks > 0) load_taps(0);
+  for (int i = 0; i < chunks; ++i) {
+    if (i + kStfStages - 1 < chunks) {
+      issue(i + kStfStages - 1, (i + kStfStages - 1) % kStfStages);
+    }
+    mft_cp_async_commit();
+    mft_cp_async_wait<kStfStages - 1>();  // this thread's copies of chunk i
+    const unsigned char* stage = ring + (i % kStfStages) * kStfStage;
+    float4 rdp[2], rh[2];
+    uint32_t rq[2];
+    {
+      const float* rd = reinterpret_cast<const float*>(stage) + raw_at;
+      const float* rhh =
+          reinterpret_cast<const float*>(stage + kStfStageH) + raw_at;
+      const uint2 q2 = *reinterpret_cast<const uint2*>(stage + arg_at);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        rdp[k] = *reinterpret_cast<const float4*>(rd + 4 * k);
+        rh[k] = *reinterpret_cast<const float4*>(rhh + 4 * k);
+      }
+      rq[0] = q2.x, rq[1] = q2.y;
+    }
+    __syncthreads();  // the previous chunk is read
+    // Window zw, channel co: the pooled gradient g through the relu at
+    // position q of the window's four rows, i.e. in pair q / 2 at place
+    // q % 2; the other pair holds 0.
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = zc + 4 * k + e;
+        const float gv =
+            mft_f4_at(rh[k], e) > 0.f ? mft_f4_at(rdp[k], e) : 0.f;
+        const int qq = static_cast<int>((rq[k] >> (8 * e)) & 0xffu);
+        const float gh = mft_tf32_rne(gv), gl = mft_tf32_rne(gv - gh);
+        const bool first = qq < 2;
+        const int at = co * kStfZRow + 2 * zw;
+        *reinterpret_cast<float2*>(zh + at) =
+            make_float2(first ? gh : 0.f, first ? 0.f : gh);
+        *reinterpret_cast<float2*>(zl + at) =
+            make_float2(first ? gl : 0.f, first ? 0.f : gl);
+        meta_b[((co / 16) * 8 + co % 8) * 2 * 4 + (co % 16) / 8 * 2] =
+            static_cast<unsigned char>((qq == 1 ? 0xEu : 0x4u) |
+                                       (qq == 3 ? 0xE0u : 0x40u));
+      }
+    }
+    if (kOne) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) put(j, xv[j]);
+    } else {
+      const bool plive = i * kStfWin + t / 4 < total;
+      for (int j = 0; j < nj; ++j) put(j, tap(j, plive));
+    }
+    __syncthreads();
+    step_row();
+    if (i + 1 < chunks) load_taps(i + 1);
+#pragma unroll
+    for (int v = 0; v < NJP / 16; ++v) {
+      float chunk[2][2][4];  // this chunk's sums
+#pragma unroll
+      for (int s = 0; s < kStfSteps; ++s) {
+        const int kk = warp * kStfSteps + s;  // the k16 step
+        uint32_t bh[2][4], bl[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint32_t o = b_off(2 * v + nt) + kk * 16 * sizeof(float);
+          ldsm4(bh[nt], ph_addr + o);
+          ldsm4(bl[nt], pl_addr + o);
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t ahi[4], alo[4];
+          const uint32_t o = m * kZTile16 + kk * 8 * sizeof(float);
+          ldsm4(ahi, zh_addr + o);
+          ldsm4(alo, zl_addr + o);
+          const uint32_t e = meta_at[kk * kStfMetaStep + m * 8 * 2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float part[4] = {};
+            // the small terms first
+            mma_sp16816_tf32(part, alo, bh[nt], e);
+            mma_sp16816_tf32(part, ahi, bl[nt], e);
+            mma_sp16816_tf32(part, ahi, bh[nt], e);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              chunk[m][nt][q] = s == 0 ? part[q] : chunk[m][nt][q] + part[q];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) grp[m][2 * v + nt][q] += chunk[m][nt][q];
+        }
+      }
+    }
+    if (++grouped == kStfGroup || i + 1 == chunks) {
+      grouped = 0;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < NJP / 8; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[m][nt][q] += grp[m][nt][q];
+            grp[m][nt][q] = 0.f;
+          }
+        }
+      }
+    }
+  }
+  for (int wv = 0; wv < kStfWarps; ++wv) {  // the warps' sums, in warp order
+    if (warp == wv) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < NJP / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& r = red[(m * 16 + gq + (e >> 1) * 8) * NJP + nt * 8 +
+                           2 * tq + (e & 1)];
+            r = wv == 0 ? acc[m][nt][e] : r + acc[m][nt][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cluster.sync();  // every rank's partials are in its shared memory
+  if (rank == 0) {
+    for (int i = t; i < kStemOut * NJP; i += kStfThreads) {
+      const int co = i / NJP, j = i % NJP;
+      if (j > nj) continue;
+      float s = red[i];
+      for (int r = 1; r < kStfCluster; ++r) {
+        s += cluster.map_shared_rank(red, r)[i];
+      }
+      if (j == nj) {
+        mft_st(gb, mft_off(gb, c, 0, co, 0, 0), s);
+      } else {
+        const int tap = j / cin;
+        mft_st(gw, mft_off(gw, c, co, j % cin, tap / 3, tap % 3), s);
+      }
+    }
+  }
+  cluster.sync();  // rank 0 has read the others' shared memory
+}
+
 // ------------------------------------------------- tensor-core forwards
 //
 // The forward for the compute dtype bf16, on the tensor cores: the port's
@@ -2362,6 +2754,31 @@ cudaError_t launch_stem(const MftView* x, const MftView* dp, const MftView* h,
              : launch_stem<80, kDenseZ>(x, dp, h, arg, gw, gb, a, st);
 }
 
+template <int NJP, bool kDenseZ>
+cudaError_t launch_stem_tf32(const MftView* x, const MftView* dp,
+                             const MftView* h, const MftView* arg,
+                             const MftView* gw, const MftView* gb,
+                             const MftConvArgs* a, cudaStream_t stream) {
+  constexpr size_t smem = stem_tf32_smem<NJP>();
+  const auto kernel = stem_wgrad_tf32_kernel<NJP, kDenseZ>;
+  cudaError_t err = mft_smem_optin(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a->clients, kStfCluster), kStfThreads, smem, stream>>>(
+      *x, *dp, *h, *arg, *gw, *gb, a->g);
+  return cudaGetLastError();
+}
+
+template <bool kDenseZ>
+cudaError_t launch_stem_tf32(const MftView* x, const MftView* dp,
+                             const MftView* h, const MftView* arg,
+                             const MftView* gw, const MftView* gb,
+                             const MftConvArgs* a, cudaStream_t st) {
+  // The columns and the ones: 16 for the path's one channel, else 80.
+  return a->g.cin == 1
+             ? launch_stem_tf32<16, kDenseZ>(x, dp, h, arg, gw, gb, a, st)
+             : launch_stem_tf32<80, kDenseZ>(x, dp, h, arg, gw, gb, a, st);
+}
+
 template <int NJP, bool kDenseOut>
 cudaError_t launch_stem_fwd(const MftView* x, const MftView* w,
                             const MftView* b, const MftView* out,
@@ -2398,13 +2815,23 @@ bool conv2_tf32_takes(const ConvGeom& g) {
          g.w == kC2Hw && g.oh == kC2Hw && g.ow == kC2Hw;
 }
 
-// What stem_fwd_f32 takes: f32 compute, a pooled 3 x 3 SAME convolution at
-// stride 1 with a stem's shape (1 <= cin <= 8 -> 32 channels, even sizes),
-// its input x in f32; the other operands of any strides and types.
+// What stem_fwd_f32 and stem_wgrad_tf32 take: f32 compute, a pooled 3 x 3
+// SAME convolution at stride 1 with a stem's shape (1 <= cin <= 8 -> 32
+// channels, even sizes), its input x in f32; the other operands of any
+// strides and types.
 bool stem_f32_takes(const ConvGeom& g, const MftView& x) {
   return g.cdt == kF32 && g.k == 3 && g.stride == 1 && g.pad == 1 && g.pool &&
          g.oh == g.h && g.ow == g.w && g.h % 2 == 0 && g.w % 2 == 0 &&
          g.cout == kStemOut && g.cin >= 1 && g.cin <= 8 && x.dtype == kF32;
+}
+
+// What stem_wgrad_tf32 takes: stem_fwd_f32's geometry, with the input's
+// offsets inside a sample in 32 bits.
+bool stem_wgrad_tf32_takes(const ConvGeom& g, const MftView& x) {
+  const long long span = (g.cin - 1) * std::llabs(x.st[2]) +
+                         (g.h - 1) * std::llabs(x.st[3]) +
+                         (g.w - 1) * std::llabs(x.st[4]);
+  return stem_f32_takes(g, x) && span <= INT_MAX;
 }
 
 }  // namespace
@@ -2435,39 +2862,11 @@ int mft_conv_fwd(const MftView* x, const MftView* w, const MftView* out,
   return cudaGetLastError();
 }
 
-// Weight gradient of a pooled conv layer: x is the layer's input, dp the
-// pooled output's gradient, h the pooled output (relu mask), arg its argmax;
-// writes gw (client, co, ci, kh, kw) and gb (client, -, co).
-int mft_conv_wgrad(const MftView* x, const MftView* dp, const MftView* h,
-                   const MftView* arg, const MftView* gw, const MftView* gb,
-                   const MftConvArgs* a, int device, void* stream) {
-  const ConvGeom& g = a->g;
-  if (a->clients <= 0 || g.batch <= 0 || !g.pool || g.oh % 2 || g.ow % 2) {
-    return cudaErrorInvalidValue;
-  }
-  const int nwb = g.k * g.k * g.cin + 1;
-  if (nwb > 1024) return cudaErrorInvalidValue;
-  int splits = 512 / nwb;
-  if (splits < 1) splits = 1;
-  if (splits > g.batch) splits = g.batch;
-  const int threads = ((nwb * splits + 31) / 32) * 32;
-  const size_t m = static_cast<size_t>(g.batch) * (g.oh / 2) * (g.ow / 2);
-  const size_t smem = sizeof(float) * (m + static_cast<size_t>(splits) * nwb) + m;
-  if (smem > kMftMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = mft_smem_optin(conv_wgrad_kernel, smem);
-  if (err != cudaSuccess) return err;
-  conv_wgrad_kernel<<<dim3(g.cout, a->clients), threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      *x, *dp, *h, *arg, *gw, *gb, g, splits);
-  return cudaGetLastError();
-}
-
-// The tensor-core kernels for the compute dtype bf16: the weight gradient
-// takes mft_conv_wgrad's arguments; the input gradient writes dx (client,
-// sample, ci, row, col) from dp, h and arg as mft_conv_wgrad reads them and
-// the weights w. What they do not take (mft_conv_tc_kind 0, with x null for
+// The tensor-core kernels for the compute dtype bf16. The weight gradient:
+// x is the layer's input, dp the pooled output's gradient, h the pooled
+// output (relu mask), arg its argmax; it writes gw (client, co, ci, kh, kw)
+// and gb (client, -, co). The input gradient writes dx (client, sample, ci,
+// row, col) from dp, h and arg, read the same way, and the weights w. What they do not take (mft_conv_tc_kind 0, with x null for
 // the input gradient) is refused, never handed to another kernel.
 int mft_conv_tc_kind(const MftConvArgs* a, const MftView* dp,
                      const MftView* x) {
@@ -2521,7 +2920,7 @@ int mft_conv_dgrad_tc(const MftView* dp, const MftView* h, const MftView* arg,
 }
 
 // conv2's weight gradient for the compute dtype f32, in 3xTF32: the same
-// arguments as mft_conv_wgrad. What mft_conv2_wgrad_tf32_takes refuses is
+// arguments as mft_conv_wgrad_tc. What mft_conv2_wgrad_tf32_takes refuses is
 // refused, never handed to another kernel.
 int mft_conv2_wgrad_tf32_takes(const MftConvArgs* a) {
   return conv2_tf32_takes(a->g);
@@ -2549,6 +2948,37 @@ int mft_conv2_wgrad_tf32(const MftView* x, const MftView* dp,
   return launch_tc(kernel, dim3(3, a->clients), kTfWgradSmem,
                    static_cast<cudaStream_t>(stream), g.batch, x, dp, h, arg,
                    gw, gb);
+}
+
+// The stem's weight gradient for the compute dtype f32, in 3xTF32: the same
+// arguments as mft_conv_wgrad_tc. What mft_stem_wgrad_tf32_takes refuses is
+// refused, never handed to another kernel.
+int mft_stem_wgrad_tf32_takes(const MftConvArgs* a, const MftView* x) {
+  return stem_wgrad_tf32_takes(a->g, *x);
+}
+
+int mft_stem_wgrad_tf32(const MftView* x, const MftView* dp,
+                        const MftView* h, const MftView* arg,
+                        const MftView* gw, const MftView* gb,
+                        const MftConvArgs* a, int device, void* stream) {
+  const ConvGeom& g = a->g;
+  const long long windows =
+      static_cast<long long>(g.batch) * (g.oh / 2) * (g.ow / 2);
+  if (a->clients <= 0 || g.batch <= 0 || windows > INT_MAX ||
+      !stem_wgrad_tf32_takes(g, *x)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  // The main path's layout: the maps NHWC, f32, the samples back to back.
+  const long long pw = g.ow / 2, per = (g.oh / 2) * pw * kStemOut;
+  const bool dz = dense_slab(*dp, kF32, 1, pw * kStemOut, kStemOut) &&
+                  dense_slab(*h, kF32, 1, pw * kStemOut, kStemOut) &&
+                  dense_slab(*arg, kU8, 1, pw * kStemOut, kStemOut) &&
+                  dp->st[1] == per && h->st[1] == per && arg->st[1] == per;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dz ? launch_stem_tf32<true>(x, dp, h, arg, gw, gb, a, st)
+            : launch_stem_tf32<false>(x, dp, h, arg, gw, gb, a, st);
 }
 
 // conv2's input gradient for the compute dtype f32, in 3xTF32: the same

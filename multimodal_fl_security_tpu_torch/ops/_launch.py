@@ -58,12 +58,12 @@ def check(lib: ctypes.CDLL, err: int, what: str, prefix: str) -> None:
 #: ``csrc/client_dense.cu``, by name. In f32 the wrappers launch the stem's
 #: and conv2's pooled forward on ``stem_fwd_f32`` (CUDA cores) and
 #: ``conv2_fwd_tf32``, conv2's weight and input gradients on
-#: ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32``, fc1's forward and
-#: backward on ``dense_fwd_tf32`` and ``dense_bwd_tf32`` (3xTF32), and the
-#: CUDA-core kernels ``conv_wgrad`` (the stem's), ``dense_fwd`` and
-#: ``dense_bwd`` (fc2); in bf16 the tensor-core kernels ``conv2_fwd_tc``,
-#: ``stem_fwd_tc``, ``conv_wgrad_tc`` (conv2's and the stem's
-#: instantiations), ``conv_dgrad_tc``, ``dense_fwd_tc`` and
+#: ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32``, the stem's weight
+#: gradient on ``stem_wgrad_tf32``, fc1's forward and backward on
+#: ``dense_fwd_tf32`` and ``dense_bwd_tf32`` (3xTF32), and the CUDA-core
+#: kernels ``dense_fwd`` and ``dense_bwd`` (fc2); in bf16 the tensor-core kernels
+#: ``conv2_fwd_tc``, ``stem_fwd_tc``, ``conv_wgrad_tc`` (conv2's and the
+#: stem's instantiations), ``conv_dgrad_tc``, ``dense_fwd_tc`` and
 #: ``dense_bwd_tc`` (fc2, with f32 weights, stays on ``dense_fwd`` and
 #: ``dense_bwd``); the raw mode (K3) runs ``stem_raw_tc`` in bf16 and
 #: ``stem_raw_tf32`` in f32 (``csrc/client_stem_raw.cu``) at K3's geometry,
@@ -71,10 +71,9 @@ def check(lib: ctypes.CDLL, err: int, what: str, prefix: str) -> None:
 #: ``.launches`` counts all of its own.
 KERNEL_LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("conv_fwd", "conv2_fwd_tc", "conv2_fwd_tf32", "stem_fwd_tc",
-     "stem_fwd_f32", "stem_raw_tc", "stem_raw_tf32", "conv_wgrad",
-     "conv_wgrad_tc", "conv2_wgrad_tf32", "conv_dgrad_tc",
-     "conv2_dgrad_tf32", "dense_fwd", "dense_fwd_tc", "dense_fwd_tf32",
-     "dense_bwd", "dense_bwd_tc", "dense_bwd_tf32"), 0)
+     "stem_fwd_f32", "stem_raw_tc", "stem_raw_tf32", "conv_wgrad_tc", "conv2_wgrad_tf32", "stem_wgrad_tf32",
+     "conv_dgrad_tc", "conv2_dgrad_tf32", "dense_fwd", "dense_fwd_tc",
+     "dense_fwd_tf32", "dense_bwd", "dense_bwd_tc", "dense_bwd_tf32"), 0)
 
 
 def count(kernel: str) -> None:

@@ -73,11 +73,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("client_conv")
     p = ctypes.POINTER(MftView)
     args = ctypes.POINTER(ConvArgs)
-    for name, n_views in (("mft_conv_fwd", 3), ("mft_conv_wgrad", 6),
-                          ("mft_conv_fwd_tc", 5), ("mft_conv2_fwd_tf32", 5),
-                          ("mft_stem_fwd_f32", 5),
+    for name, n_views in (("mft_conv_fwd", 3), ("mft_conv_fwd_tc", 5),
+                          ("mft_conv2_fwd_tf32", 5), ("mft_stem_fwd_f32", 5),
                           ("mft_conv_wgrad_tc", 6), ("mft_conv_dgrad_tc", 5),
                           ("mft_conv2_wgrad_tf32", 6),
+                          ("mft_stem_wgrad_tf32", 6),
                           ("mft_conv2_dgrad_tf32", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_views + [args, ctypes.c_int, ctypes.c_void_p]
@@ -91,8 +91,10 @@ def _library() -> ctypes.CDLL:
                   lib.mft_conv2_fwd_tf32_takes):
         takes.argtypes = [args]
         takes.restype = ctypes.c_int
-    lib.mft_stem_fwd_f32_takes.argtypes = [args, p]
-    lib.mft_stem_fwd_f32_takes.restype = ctypes.c_int
+    for takes in (lib.mft_stem_fwd_f32_takes,
+                  lib.mft_stem_wgrad_tf32_takes):
+        takes.argtypes = [args, p]
+        takes.restype = ctypes.c_int
     lib.mft_client_conv_error_string.argtypes = [ctypes.c_int]
     lib.mft_client_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -299,18 +301,18 @@ def _fwd_kernel_for(lib: ctypes.CDLL, a: ConvArgs, x: MftView,
 
 def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
                 x: Optional[MftView], wrapper: str) -> str:
-    """The kernel that serves ``a``'s compute dtype. For f32 conv2's
-    gradients (a pooled 3x3 SAME stride-1 geometry with conv2's shape,
-    operands of any strides) run ``conv2_wgrad_tf32`` and
-    ``conv2_dgrad_tf32`` in 3xTF32 on the tensor cores, a route chosen
-    here, before the launch; any other weight gradient (the stem's) runs
-    the CUDA-core ``conv_wgrad``, and any other input gradient raises. For
-    bf16 the tensor-core one, which takes a
+    """The kernel that serves ``a``'s compute dtype, a route chosen here,
+    before the launch. For f32 conv2's gradients (a pooled 3x3 SAME
+    stride-1 geometry with conv2's shape, operands of any strides) run
+    ``conv2_wgrad_tf32`` and ``conv2_dgrad_tf32`` in 3xTF32 on the tensor
+    cores, and a stem's weight gradient (the same geometry at 1-8 -> 32
+    channels, even sizes, ``x`` in f32) ``stem_wgrad_tf32``; any other f32
+    call raises. For bf16 the tensor-core one, which takes a
     pooled 3x3 SAME stride-1 geometry with conv2's shape (32 -> 64 channels
     at 14x14) or, for the weight gradient only (``x`` the input's view,
     None for the input gradient), a stem's (1-8 -> 32 channels, its input
-    in f32), and ``dp`` (its view) in bf16. Any other bf16 call raises: it
-    never drops to the CUDA-core kernel. The kernels read the main path's
+    in f32), and ``dp`` (its view) in bf16; any other bf16 call raises. No
+    call drops to another kernel. The kernels read the main path's
     layouts (conv2's maps NCHW and its input NHWC, the stem's maps NHWC)
     with vector loads, any other strides one element at a time."""
     if a.g.cdt == DTYPE_CODES[torch.float32]:
@@ -318,13 +320,17 @@ def _kernel_for(lib: ctypes.CDLL, a: ConvArgs, dp: MftView,
                 "conv_dgrad": "conv2_dgrad_tf32"}[wrapper]
         if getattr(lib, f"mft_{tf32}_takes")(ctypes.byref(a)):
             return tf32
-        if wrapper == "conv_wgrad":
-            return wrapper
+        if x is not None and lib.mft_stem_wgrad_tf32_takes(ctypes.byref(a),
+                                                           ctypes.byref(x)):
+            return "stem_wgrad_tf32"
         g = a.g
+        stem = (" or stem_wgrad_tf32, which take a pooled 3x3 SAME stride-1 "
+                "conv2 (32 -> 64 at 14x14) or stem (1-8 -> 32, input in f32)"
+                if x is not None else ", which takes a pooled 3x3 SAME "
+                "stride-1 conv2 (32 -> 64 at 14x14)")
         raise ValueError(
-            f"conv_dgrad in f32 runs conv2_dgrad_tf32, which takes a pooled "
-            f"3x3 SAME stride-1 conv2 (32 -> 64 at 14x14); got {g.cin} -> "
-            f"{g.cout} at {g.h}x{g.w}, k {g.k}, pad {g.pad}")
+            f"{wrapper} in f32 runs {tf32}{stem}; got {g.cin} -> {g.cout} "
+            f"at {g.h}x{g.w}, k {g.k}, stride {g.stride}, pad {g.pad}")
     kind = lib.mft_conv_tc_kind(ctypes.byref(a), ctypes.byref(dp),
                                 None if x is None else ctypes.byref(x))
     if kind == _TC_NONE:
@@ -374,9 +380,10 @@ def conv_wgrad(x: torch.Tensor, dp: torch.Tensor, h: torch.Tensor,
     the gradient buffer). ``x`` is the layer's input, ``dp`` the pooled
     output's gradient, ``h`` the pooled output and ``arg`` its argmax.
     For the stem this is the fold of w4's four copies into the 3x3 kernel.
-    f32 runs ``conv2_wgrad_tf32`` for conv2 and the CUDA-core kernel for
-    the stem, bf16 the tensor-core one (see :func:`_kernel_for`);
-    ``conv_wgrad.launches`` counts the launches of all three,
+    f32 runs ``conv2_wgrad_tf32`` for conv2 and ``stem_wgrad_tf32`` for
+    the stem (3xTF32), bf16 the tensor-core one; any other geometry raises
+    (see :func:`_kernel_for`); ``conv_wgrad.launches`` counts the launches
+    of all three,
     :data:`~._launch.KERNEL_LAUNCHES` each one's."""
     if x.device.type == "cpu":
         return conv_wgrad_plain(x, dp, h, arg, gw, gb, stride=stride, pad=pad,

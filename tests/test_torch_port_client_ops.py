@@ -583,11 +583,11 @@ def pooled_case(gen, layer, c, b, cin, dtype):
 @pytest.mark.parametrize("layer,c,b,cin", SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_conv_wgrad_kernel_matches_plain(cuda, layer, c, b, cin, dtype):
-    """conv2's f32 gradient runs conv2_wgrad_tf32, whose 3xTF32 sums in a
-    fixed order keep f32's accuracy; the plain version's f32 sums over 32 x
-    196 positions do not (at C=100, B=32 they are off the exact ones by
-    more than the tolerance), so that kernel is held to the exact (f64)
-    gradient at the same tolerance."""
+    """The f32 gradients run conv2_wgrad_tf32 and stem_wgrad_tf32, whose
+    3xTF32 sums in a fixed order keep f32's accuracy; the plain version's
+    f32 sums over 32 x 196 positions need not (at C=100, B=32 conv2's are
+    off the exact ones by more than the tolerance), so both kernels are
+    held to the exact (f64) gradient at the same tolerance."""
     x, w, bias, h, arg, dp = pooled_case(cuda, layer, c, b, cin, dtype)
     grads = [torch.full_like(w, float("nan")), torch.full_like(bias, 0.5)]
     again = [torch.empty_like(w), torch.empty_like(bias)]
@@ -596,7 +596,7 @@ def test_conv_wgrad_kernel_matches_plain(cuda, layer, c, b, cin, dtype):
     conv_wgrad(x, dp, h, arg, *grads, dtype=dtype)
     conv_wgrad(x, dp, h, arg, *again, dtype=dtype)
     assert conv_wgrad.launches == before + 2
-    if dtype == torch.float32 and layer == "conv2":
+    if dtype == torch.float32:
         want = wgrad_f64(x, dp, h, arg, w.shape)
     else:
         conv_wgrad_plain(x, dp, h, arg, *want, dtype=dtype)
@@ -711,11 +711,12 @@ def dense_case(gen, c, rows, k, f, dtype, ints=False):
 def test_kernel_choice_follows_the_dtype(cuda):
     """f32 launches the CUDA-core kernels but for conv2's forward, weight
     and input gradients (conv2_fwd_tf32, conv2_wgrad_tf32,
-    conv2_dgrad_tf32: 3xTF32) and a dense layer at fc1's geometry
-    (dense_fwd_tf32, dense_bwd_tf32); its pooled stem forward runs the
-    CUDA-core stem_fwd_f32. bf16 launches the tensor-core ones; the raw
-    mode, K3, runs stem_raw_tf32 in f32 and stem_raw_tc in bf16. Each
-    kernel has its own count, the wrappers count all of theirs."""
+    conv2_dgrad_tf32: 3xTF32), the stem's weight gradient
+    (stem_wgrad_tf32) and a dense layer at fc1's geometry (dense_fwd_tf32,
+    dense_bwd_tf32); its pooled stem forward runs the CUDA-core
+    stem_fwd_f32. bf16 launches the tensor-core ones; the raw mode, K3, runs stem_raw_tf32 in f32 and
+    stem_raw_tc in bf16. Each kernel has its own count, the wrappers count
+    all of theirs."""
     counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         for layer, cin in TC_CASES:
@@ -766,7 +767,7 @@ def test_kernel_choice_follows_the_dtype(cuda):
                    False: {"conv2": "conv2_fwd_tf32",
                            "stem": "stem_fwd_f32"}}[tc][layer]
             wgrad32 = "conv2_wgrad_tf32" if layer == "conv2" else \
-                "conv_wgrad"
+                "stem_wgrad_tf32"
             want = {**zero, wgrad32: int(not tc), "conv_wgrad_tc": int(tc),
                     "conv2_dgrad_tf32": dgrad * int(not tc),
                     "conv_dgrad_tc": dgrad * int(tc)}
@@ -851,6 +852,42 @@ def test_tc_kernels_refuse_other_bf16_calls(cuda):
         with pytest.raises(ValueError, match="tensor-core"):
             call()
     assert counted() == before
+
+
+@pytest.mark.cuda
+def test_tc_kernels_refuse_other_f32_calls(cuda):
+    """An f32 weight gradient that neither conv2_wgrad_tf32 nor
+    stem_wgrad_tf32 takes raises, and nothing is launched: no other kernel
+    serves it."""
+    f32 = torch.float32
+    x, w, bias, h, arg, dp = pooled_case(cuda, "conv2", 3, 5, 32, f32)
+    sx, sw, sb, sh, sarg, sdp = pooled_case(cuda, "stem", 3, 5, 1, f32)
+    gw, gb = torch.empty_like(w), torch.empty_like(bias)
+    s9 = torch.randn((3, 5, 9, 28, 28), generator=cuda, device="cuda")
+    two = [torch.cat([v, v], 2) for v in (sdp, sh, sarg)]
+    calls = {
+        "conv2 at 16 input channels": lambda: conv_wgrad(
+            x[:, :, :16], dp, h, arg, gw[:, :, :16], gb),
+        "conv2 at stride 2": lambda: conv_wgrad(x, dp, h, arg, gw, gb,
+                                                stride=2),
+        "a stem of 64 outputs": lambda: conv_wgrad(
+            sx, *two, torch.empty((3, 64, 1, 3, 3), device="cuda"),
+            torch.empty((3, 64), device="cuda")),
+        "a stem of bf16 input": lambda: conv_wgrad(
+            sx.to(torch.bfloat16), sdp, sh, sarg, torch.empty_like(sw),
+            torch.empty_like(sb)),
+        "a stem of 9 input channels": lambda: conv_wgrad(
+            s9, sdp, sh, sarg, torch.empty((3, 32, 9, 3, 3), device="cuda"),
+            torch.empty_like(sb)),
+        "a 5x5 stem": lambda: conv_wgrad(
+            sx, sdp, sh, sarg, torch.empty((3, 32, 1, 5, 5), device="cuda"),
+            torch.empty_like(sb), pad=2),
+    }
+    before = (dict(KERNEL_LAUNCHES), conv_wgrad.launches)
+    for what, call in calls.items():
+        with pytest.raises(ValueError, match="stem_wgrad_tf32"):
+            call()
+    assert (dict(KERNEL_LAUNCHES), conv_wgrad.launches) == before
 
 
 DENSE = [(3, 7, 100, 37, False, False), (100, 32, 3136, 128, False, False),

@@ -1,22 +1,25 @@
 """The f32 convolutions on Hopper's tensor cores in 3xTF32: K3's raw stem
-(``stem_raw_tf32``, ``csrc/client_stem_raw.cu``) and conv2's weight gradient
-(``conv2_wgrad_tf32``, ``csrc/client_conv.cu``).
+(``stem_raw_tf32``, ``csrc/client_stem_raw.cu``), conv2's weight gradient
+(``conv2_wgrad_tf32``) and the stem's (``stem_wgrad_tf32``, both
+``csrc/client_conv.cu``).
 
 On the CPU, each kernel's arithmetic is emulated in numpy: every f32 operand
 a split into hi = tf32(a) and lo = tf32(a - hi), rounded to nearest even as
 ``tf32_rne`` does on the bits; lo hi + hi lo + hi hi summed in f32, each chunk
 of the kernel's k steps into a fresh sum that is added to the total in chunk
 order. The emulated K3 is held to the JAX package's ``client_stem_conv`` in
-interpret mode and to ``client_stem_conv_reference``; the emulated conv2
-weight gradient to the JAX side's gradient of one step (``fold_grads`` of
-``jax.grad`` of ``packed_ce``), as ``test_step_grads_match_folded_jax_grads``
-builds it. Each emulation's error against an f64 reference is held to at
-most 4x that of the same function computed in f32.
+interpret mode and to ``client_stem_conv_reference``; the emulated conv2 and
+stem weight gradients to the JAX side's gradient of one step (``fold_grads``
+of ``jax.grad`` of ``packed_ce``; the stem's the fold of w4's four copies),
+as ``test_step_grads_match_folded_jax_grads`` builds it. Each emulation's
+error against an f64 reference is held to at most 4x that of the same
+function computed in f32, and on small integers each equals the plain
+version bitwise.
 
 The ``cuda`` cases run on the card at small ragged shapes and at C = 100,
 B = 32 (rtol 1e-5, atol 1e-5 of max|reference|, ``close`` of
 ``tests/test_torch_port_client_ops.py``): K3's kernel against its plain
-version, conv2's weight gradient against the exact (f64) gradient, since
+version, the weight gradients against the exact (f64) gradient, since
 the plain version's f32 sums over 32 x 196 positions are themselves off
 the exact ones by more than that tolerance at C = 100, B = 32. Each
 kernel's error against f64 is held to at most 4x the f32 plain version's,
@@ -36,6 +39,7 @@ from multimodal_fl_security_tpu_torch.ops.client_conv import (
     _ungrouped,
     client_stem_conv,
     client_stem_conv_plain,
+    conv_dgrad,
     conv_fwd,
     conv_fwd_plain,
     conv_wgrad,
@@ -211,13 +215,20 @@ def port_step_conv2(case):
     to conv2's weight gradient (as ``ops/fused_kernel.py::step_grads`` runs
     it, on the CPU's plain versions): conv2's input, the pooled gradient,
     map and argmax."""
+    t = port_step(case)
+    return t["h1"], t["dh3"], t["h3"], t["a3"]
+
+
+def port_step(case):
+    """The tape of :func:`port_step_conv2`'s step, with the stem's input
+    ``x`` and pooled argmax ``a1`` and conv2's weights ``w2``."""
     f32 = torch.float32
     views = case["model"].layout(CIN).views(case["params"])
     grads = case["model"].layout(CIN).views(
         torch.zeros_like(case["params"]))
     x = nchw(case["images"])
-    h1, _ = conv_fwd(x, views["conv1.weight"], views["conv1.bias"],
-                     dtype=f32, channels_last=True)
+    h1, a1 = conv_fwd(x, views["conv1.weight"], views["conv1.bias"],
+                      dtype=f32, channels_last=True)
     h3, a3 = conv_fwd(h1, views["conv2.weight"], views["conv2.bias"],
                       dtype=f32)
     f3 = h3.view(C, h3.shape[1], -1)
@@ -233,7 +244,8 @@ def port_step_conv2(case):
     dh3 = dense_bwd(dz4, f3, views["fc1.weight"], grads["fc1.weight"],
                     grads["fc1.bias"], wdtype=f32, gdtype=f32,
                     dx_dtype=f32).view(h3.shape)
-    return h1, dh3, h3, a3
+    return dict(x=x, h1=h1, a1=a1, dh3=dh3, h3=h3, a3=a3,
+                w2=views["conv2.weight"])
 
 
 def test_conv2_wgrad_3xtf32_matches_folded_jax_grads(case):
@@ -282,6 +294,148 @@ def test_conv2_wgrad_3xtf32_exact_on_integers():
     gw, gb = torch.empty_like(w), torch.empty_like(bias)
     conv_wgrad_plain(x, dp, h, arg, gw, gb)
     dw, db = conv2_wgrad_3xtf32(x, dp, h, arg)
+    assert float(gw.abs().max()) > 100  # sums large enough to test
+    np.testing.assert_array_equal(dw, gw.numpy())
+    np.testing.assert_array_equal(db, gb.numpy())
+
+
+# ---------------------------------------------------------------- the stem
+
+#: ``stem_wgrad_tf32_kernel``'s constants (``csrc/client_conv.cu``): the
+#: blocks of a cluster, which split a client's samples; the warps of a
+#: block, which split each chunk's rows; the pooled windows a chunk; the
+#: chunks whose sums are added before the block's total
+STEM_CLUSTER, WARPS, CHUNK_WINDOWS, GROUP = 8, 4, 32, 8
+
+
+def stem_rows(x, dp, h, arg):
+    """The stem's dense rows in the kernel's order, row (n, oi, oj, q) for
+    position q = di * 2 + dj of window (oi, oj) of sample n: dZ [C, rows,
+    32] and the patch [C, rows, 9 cin + 1], its taps in (ci, kh, kw) order,
+    then the ones column."""
+    c, b, cin, hh, ww = x.shape
+
+    def window_rows(t):  # [C, B, k, H, W] -> [C, B * H * W, k]
+        k = t.shape[2]
+        return t.reshape(c, b, k, hh // 2, 2, ww // 2, 2).transpose(
+            0, 1, 3, 5, 4, 6, 2).reshape(c, -1, k)
+
+    z = window_rows(_dense_dz(dp, h, arg, hh, ww).numpy())
+    taps = F.unfold(x.reshape(c * b, cin, hh, ww).float(), 3, padding=1)
+    p = window_rows(taps.numpy().reshape(c, b, cin * 9, hh, ww))
+    ones = np.ones(p.shape[:-1] + (1,), np.float32)
+    return z.astype(np.float32), np.concatenate([p, ones], axis=-1)
+
+
+def stem_wgrad_3xtf32(x, dp, h, arg):
+    """``stem_wgrad_tf32_kernel``'s arithmetic on the stem's input x [C, B,
+    cin, H, W] and the pooled gradient, map and argmax [C, B, 32, H/2, W/2]
+    (torch tensors): dW[co, (ci, kh, kw)] and db[co] = sum over the dense
+    rows of dZ[row, co] times the patch row, in 3xTF32. The kernel's order:
+    rank r of a cluster takes samples [r B / 8, (r + 1) B / 8); its rows go
+    in chunks of 4 x 32, each chunk's rows split evenly among the warps; a
+    warp sums its rows of a chunk afresh, adds them to the sum of its
+    current group of 8 chunks and each group's sum to its total, in f32;
+    then the warps' totals are added in warp order, and the ranks' in rank
+    order. (The kernel sums a warp's rows of a chunk as two fresh k16 steps
+    on the tensor cores, whose sums do not round to nearest; here they are
+    one f32 product.) Returns (dW [C, 32, cin, 3, 3], db [C, 32]) as numpy
+    f32."""
+    c, b, cin = x.shape[:3]
+    z, p = stem_rows(x, dp, h, arg)
+    per_sample = z.shape[1] // b
+    chunk = 4 * CHUNK_WINDOWS
+    total = None
+    for r in range(STEM_CLUSTER):
+        rows = slice(r * b // STEM_CLUSTER * per_sample,
+                     (r + 1) * b // STEM_CLUSTER * per_sample)
+        pad = ((0, 0), (0, -(rows.stop - rows.start) % chunk), (0, 0))
+        zr, pr = np.pad(z[:, rows], pad), np.pad(p[:, rows], pad)
+        chunks = zr.shape[1] // chunk
+        parts = products_3xtf32(
+            zr.reshape(c, chunks, WARPS, -1, 32).transpose(0, 1, 2, 4, 3),
+            pr.reshape(c, chunks, WARPS, chunk // WARPS, p.shape[-1]))
+        acc = np.zeros((c, WARPS, 32, p.shape[-1]), np.float32)
+        grp = np.zeros_like(acc)
+        for k in range(chunks):
+            grp += parts[:, k]
+            if (k + 1) % GROUP == 0 or k + 1 == chunks:
+                acc += grp
+                grp[:] = 0
+        red = acc[:, 0].copy()
+        for w in range(1, WARPS):
+            red += acc[:, w]
+        total = red if total is None else total + red
+    return total[..., :-1].reshape(c, 32, cin, 3, 3), total[..., -1]
+
+
+def stem_operands(cin, ints=False, c=2, b=32, seed=6):
+    """The stem's weight-gradient operands at ``cin`` input channels: x
+    [C, B, cin, 28, 28], the pooled map and argmax of the plain forward
+    (NHWC, as the main path's) and a pooled gradient of the map's strides;
+    ``ints``: small integers."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, lo, hi, scale):
+        if ints:
+            return torch.randint(lo, hi, shape, generator=gen).float()
+        return scale * torch.randn(shape, generator=gen)
+
+    x = draw((c, b, cin, 28, 28), -3, 4, 1.0)
+    w = draw((c, 32, cin, 3, 3), -2, 3, 0.3)
+    bias = draw((c, 32), -2, 3, 0.1)
+    h, arg = conv_fwd_plain(x, w, bias, channels_last=True)
+    dp = torch.empty_like(h).copy_(draw(h.shape, -4, 5, 0.1))
+    return x, w, bias, h, arg, dp
+
+
+def test_stem_wgrad_3xtf32_matches_folded_jax_grads(case):
+    """The emulated kernel on one step's stem operands (eight input
+    channels) against the JAX side's folded stem gradient of the same step
+    (the fold of w4's four copies), at the tolerance of
+    ``test_step_grads_match_folded_jax_grads``."""
+    from multimodal_fl_security_tpu_torch.models.from_jax import (
+        params_from_jax,
+    )
+
+    assert min_window_gap(case) > 2e-6  # the comparison's premise
+    steps = [jax_step(case, c) for c in range(C)]
+    want = case["model"].layout(CIN).views(params_from_jax(
+        case["model"], stack_trees([s[1] for s in steps]), device="cpu"))
+    t = port_step(case)
+    dh1 = conv_dgrad(t["dh3"], t["h3"], t["a3"], t["w2"], (14, 14),
+                     channels_last=True)
+    dw, db = stem_wgrad_3xtf32(t["x"], dh1, t["h1"], t["a1"])
+    np.testing.assert_allclose(dw, want["conv1.weight"].numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(db, want["conv1.bias"].numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("cin", [1, 8])
+def test_stem_wgrad_3xtf32_keeps_f32_accuracy(cin):
+    """Against an f64 reference, the emulated kernel's dW and db are off by
+    at most 4x the f32 plain version's (``conv2d_weight`` in f32) at C = 2,
+    B = 32: 25,088 rows a client."""
+    x, w, bias, h, arg, dp = stem_operands(cin)
+    ref = [v.numpy() for v in wgrad_f64(x, dp, h, arg, w.shape)]
+    gw, gb = torch.empty_like(w), torch.empty_like(bias)
+    conv_wgrad_plain(x, dp, h, arg, gw, gb)
+    for got, plain, want in zip(stem_wgrad_3xtf32(x, dp, h, arg),
+                                (gw.numpy(), gb.numpy()), ref):
+        err, err_f32 = (float(np.abs(v - want).max()) for v in (got, plain))
+        assert err <= F64_FACTOR * err_f32, (err, err_f32)
+
+
+@pytest.mark.parametrize("cin", [1, 8])
+def test_stem_wgrad_3xtf32_exact_on_integers(cin):
+    """On small integers hi = a and lo = 0, and every product and sum is
+    exact: the emulation equals the plain version bitwise, over a ragged
+    batch (B = 11: the eight ranks take 1 or 2 samples)."""
+    x, w, bias, h, arg, dp = stem_operands(cin, ints=True, b=11)
+    gw, gb = torch.empty_like(w), torch.empty_like(bias)
+    conv_wgrad_plain(x, dp, h, arg, gw, gb)
+    dw, db = stem_wgrad_3xtf32(x, dp, h, arg)
     assert float(gw.abs().max()) > 100  # sums large enough to test
     np.testing.assert_array_equal(dw, gw.numpy())
     np.testing.assert_array_equal(db, gb.numpy())
@@ -460,5 +614,77 @@ def test_conv2_wgrad_tf32_matches_f64(cuda, c, b, main_layout):
           f"{err_plain:.3g}")
     assert err <= F64_FACTOR * err_plain, (err, err_plain)
     assert float(want_i[0].abs().max()) > 100  # sums large enough to test
+    assert torch.equal(got_i[0], want_i[0]) and torch.equal(got_i[1],
+                                                            want_i[1])
+
+
+def stem_case(gen, c, b, cin, layout, ints=False):
+    """The stem's f32 weight-gradient operands on the card: x [C, B, cin,
+    28, 28] and the pooled map, argmax and a gradient of the map's strides.
+    ``layout``: "main", the main path's (x NCHW, the maps NHWC with the
+    samples back to back, read with vector loads); "nchw", the maps NCHW;
+    "strided", every other sample of twice the batch (x and the maps NHWC
+    but not back to back). The last two are read one element at a time.
+    ``ints``: small integers."""
+    def draw(shape, lo, hi, scale):
+        if ints:
+            return torch.randint(lo, hi, shape, generator=gen,
+                                 device="cuda").float()
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    step = 2 if layout == "strided" else 1
+    x = draw((c, step * b, cin, 28, 28), -3, 4, 1.0)[:, ::step]
+    w = draw((c, 32, cin, 3, 3), -2, 3, 0.3)
+    bias = draw((c, 32), -2, 3, 0.1)
+    with torch.backends.cudnn.flags(enabled=not ints):
+        h, arg = conv_fwd_plain(x, w, bias, channels_last=layout != "nchw")
+    dp = torch.empty_like(h).copy_(draw(h.shape, -4, 5, 0.1))
+    if layout == "strided":
+        def spread(v):  # v's values at every other sample of a 2B buffer
+            big = torch.zeros((c, 2 * b, 14, 14, 32), dtype=v.dtype,
+                              device="cuda").permute(0, 1, 4, 2, 3)
+            big[:, ::2] = v
+            return big[:, ::2]
+
+        h, arg, dp = spread(h), spread(arg), spread(dp)
+    return x, w, bias, h, arg, dp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["main", "nchw", "strided"])
+@pytest.mark.parametrize("c,b", [(3, 5), (100, 32)])
+@pytest.mark.parametrize("cin", range(1, 9))
+def test_stem_wgrad_tf32_matches_f64(cuda, cin, c, b, layout):
+    """f32 stem weight gradients run stem_wgrad_tf32 once a call, at one to
+    eight input channels, in the main path's layout and two others: within
+    the f32 tolerance of the exact (f64) gradient, the error against it at
+    most 4x the f32 plain version's, two calls bitwise equal, and on small
+    integers bitwise the plain version (without cuDNN)."""
+    x, w, bias, h, arg, dp = stem_case(cuda, c, b, cin, layout)
+    grads = [torch.full_like(w, float("nan")), torch.full_like(bias, 0.5)]
+    again = [torch.empty_like(w), torch.empty_like(bias)]
+    plain = [torch.empty_like(w), torch.empty_like(bias)]
+    _, launches = counted(lambda: conv_wgrad(x, dp, h, arg, *grads))
+    conv_wgrad(x, dp, h, arg, *again)
+    conv_wgrad_plain(x, dp, h, arg, *plain)
+    ref = wgrad_f64(x, dp, h, arg, w.shape)
+    xi, wi, bi, hi, ai, dpi = stem_case(cuda, c, b, cin, layout, ints=True)
+    got_i = [torch.empty_like(wi), torch.empty_like(bi)]
+    want_i = [torch.empty_like(wi), torch.empty_like(bi)]
+    conv_wgrad(xi, dpi, hi, ai, *got_i)
+    with torch.backends.cudnn.flags(enabled=False):
+        conv_wgrad_plain(xi, dpi, hi, ai, *want_i)
+    torch.cuda.synchronize()
+    assert launches == {"stem_wgrad_tf32": 1}
+    for got, rep, ref_, pl in zip(grads, again, ref, plain):
+        assert torch.equal(got, rep)  # fixed-order sums
+        close(got, ref_)
+        err, err_plain = (float((v.double() - ref_).abs().max())
+                          for v in (got, pl))
+        assert err <= F64_FACTOR * err_plain, (err, err_plain)
+    print(f"[stem_wgrad_tf32 cin={cin} C={c} B={b} {layout}] vs f64: dW "
+          f"kernel {float((grads[0].double() - ref[0]).abs().max()):.3g}, "
+          f"plain {float((plain[0].double() - ref[0]).abs().max()):.3g}")
+    assert float(want_i[0].abs().max()) > 50  # sums large enough to test
     assert torch.equal(got_i[0], want_i[0]) and torch.equal(got_i[1],
                                                             want_i[1])

@@ -214,8 +214,9 @@ def test_kernel_path_bf16_is_reproducible_and_counted():
     # dense_bwd.
     assert per_kernel == {
         "conv_fwd": 0, "conv2_fwd_tc": steps, "conv2_fwd_tf32": 0,
-        "stem_fwd_tc": steps, "stem_fwd_f32": 0, "stem_raw_tc": 0, "stem_raw_tf32": 0, "conv_wgrad": 0,
+        "stem_fwd_tc": steps, "stem_fwd_f32": 0, "stem_raw_tc": 0, "stem_raw_tf32": 0,
         "conv_wgrad_tc": 2 * steps, "conv2_wgrad_tf32": 0,
+        "stem_wgrad_tf32": 0,
         "conv_dgrad_tc": steps, "conv2_dgrad_tf32": 0, "dense_fwd": steps,
         "dense_fwd_tc": steps, "dense_fwd_tf32": 0, "dense_bwd": steps,
         "dense_bwd_tc": steps, "dense_bwd_tf32": 0}

@@ -15,7 +15,9 @@ same state. At rates (0, 0) nothing but the batch orders is drawn.
 
 The ``cuda`` cases run on the card and skip without one: the engine
 dispatches the kernel trainer there (its call counter and
-``LAUNCHES_PER_DROPOUT_STEP`` launches a step).
+``LAUNCHES_PER_DROPOUT_STEP`` launches a step), and an f32 call of the
+benchmark cells' 38 steps runs the stem's weight gradient on
+``stem_wgrad_tf32`` once a step.
 """
 
 import numpy as np
@@ -24,6 +26,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from multimodal_fl_security_tpu_torch.models import create_model
+from multimodal_fl_security_tpu_torch.ops._launch import (
+    kernel_launches,
+    reset_kernel_launches,
+)
+from multimodal_fl_security_tpu_torch.ops.client_conv import conv_wgrad
 from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
     DRAWN_DROPOUT_STEP_KERNELS,
     LAUNCHES_PER_DROPOUT_STEP,
@@ -160,3 +167,38 @@ def test_kernel_trainer_rule(case, spec, images, admitted):
     assert bool(torch.isfinite(rows).all()) and bool(
         torch.isfinite(losses).all())
     assert rows.shape == (C, params.numel()) and losses.shape == (C,)
+
+
+@pytest.mark.cuda
+def test_f32_round_runs_stem_wgrad_tf32():
+    """One f32 round's local training on the card, at the SimpleCNN cells'
+    38 steps (600 rows padded to 608, batch 32, 2 epochs): the stem's weight
+    gradient runs stem_wgrad_tf32 once a step and conv2's conv2_wgrad_tf32,
+    and the weight-gradient wrapper launches nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 608
+    model = create_model("simple_cnn", num_classes=10, dropout_rates=(0.25,
+                                                                      0.5))
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = model.init_params(1, gen)
+    images = torch.randn((C, n, 1, 28, 28), generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (C, n), generator=gen, device="cuda")
+    mask = torch.ones((C, n), device="cuda")
+    mask[:, 600:] = 0.0
+    spec = TrainSpec(learning_rate=LR, local_epochs=EPOCHS, batch_size=B)
+    assert model.dtype == torch.float32
+    assert kernel_trainer_takes(model, spec, images)
+    reset_kernel_launches()
+    wgrad_before = conv_wgrad.launches
+    rows, _ = make_local_train_fn(model, spec, n)(
+        params, {"image": images, "label": labels}, mask,
+        torch.Generator("cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    steps = EPOCHS * n // B
+    assert steps == 38
+    assert launches["stem_wgrad_tf32"] == steps
+    assert launches["conv2_wgrad_tf32"] == steps
+    assert conv_wgrad.launches == wgrad_before + 2 * steps
+    assert bool(torch.isfinite(rows).all())
