@@ -44,12 +44,12 @@ paths and fails loudly on anything wrong. Phases, in order:
    launch per round (and one Gram launch per round in R4), the first
    round's aggregate through the kernels equal to the plain versions' on
    the same update matrix, and test accuracy > 0.5 after R1 and R2. Local
-   training runs on the engine's kernel trainer
-   (``ops/fused_kernel.py::kernel_local_train``), counted in every run:
-   one call a round, 16 launches a step by wrapper
-   (``DRAWN_DROPOUT_STEP_KERNELS``: 4 of them ``drawn_dropout``) and by
-   kernel those of the run's dtype (as in 7b and 7c). These counts are
-   the launches of the kernels line's local-training rows.
+   training runs the engine's kernel step
+   (``ops/fused_kernel.py::KernelStep``), counted in every run: 16
+   launches a step by wrapper (``DRAWN_DROPOUT_STEP_KERNELS``: 4 of them
+   ``drawn_dropout``) and by kernel those of the run's dtype (as in 7b and
+   7c). These counts are the launches of the kernels line's
+   local-training rows.
 
 7. Fused local training (the K3/K4 slice), at the north star's width:
    (a) each kernel of ``csrc/client_conv.cu``, ``client_dense.cu`` and
@@ -127,7 +127,7 @@ paths and fails loudly on anything wrong. Phases, in order:
    tolerance; times of both, and of the backward-only kernels (also in 5
    rounds of turns against their plain versions).
 10. K4's dropout: the dropout kernel against its plain version (bitwise,
-   [100, 32, 3136] and [100, 32, 128], f32 and bf16); the kernel trainer's
+   [100, 32, 3136] and [100, 32, 128], f32 and bf16); the kernel step's
    ``drawn_dropout`` against ``drawn_dropout_plain`` on the same x and
    drawn uniforms u at the round's shapes and keeps ([100, 32, 3136] at
    0.75, [100, 32, 128] at 0.5, f32 and bf16; bitwise), timed in turns
@@ -277,7 +277,7 @@ TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
             "dense_bwd_tf32_kernel": "HMMA"}
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
 DROPOUT_REPLACES = "multimodal_fl_security_tpu/ops/fused_kernel.py:403"
-#: the engine's dropout, which the kernel trainer applies from drawn uniforms
+#: the engine's dropout, which the kernel step applies from drawn uniforms
 DRAWN_DROPOUT_REPLACES = "multimodal_fl_security_tpu/models/simple_cnn.py:104"
 #: fc1's two dropout layers in the round: (shape, keep)
 DRAWN_DROPOUT_CASES = (((100, 32, 3136), 0.75), ((100, 32, 128), 0.5))
@@ -771,7 +771,7 @@ def check_aggregate(run: str, defense, u: torch.Tensor,
 
 def phase_robust_rounds() -> dict:
     """R1-R5 at full width; returns each kernel's launches over the runs,
-    by wrapper (the Gram, the sorted reduce and the kernel trainer's) and
+    by wrapper (the Gram, the sorted reduce and the kernel step's) and
     by kernel (``ops/_launch.py::KERNEL_LAUNCHES``)."""
     from multimodal_fl_security_tpu_torch.bench import (
         build_engine,
@@ -784,7 +784,6 @@ def phase_robust_rounds() -> dict:
     )
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         DRAWN_DROPOUT_STEP_KERNELS,
-        kernel_local_train,
     )
     from multimodal_fl_security_tpu_torch.ops.gram import gram
     from multimodal_fl_security_tpu_torch.ops.sorted_reduce import sorted_reduce
@@ -808,7 +807,6 @@ def phase_robust_rounds() -> dict:
 
         for w in (*aggregation, *DRAWN_DROPOUT_STEP_KERNELS):
             w.launches = 0
-        kernel_local_train.calls = 0
         reset_kernel_launches()
         metrics = []
         for _ in range(warm):
@@ -818,7 +816,6 @@ def phase_robust_rounds() -> dict:
         launches = {w.__name__: w.launches for w in aggregation}
         trainer = {w.__name__: w.launches for w in DRAWN_DROPOUT_STEP_KERNELS}
         by_kernel = kernel_launches()
-        calls = kernel_local_train.calls
         metrics += timed
 
         rounds = warm + n_rounds
@@ -828,19 +825,17 @@ def phase_robust_rounds() -> dict:
         print(f"[robust] {run} {attack} + {defense} ({dtype}): {rounds} "
               f"rounds, {n_rounds} timed in {seconds:.3f} s; "
               f"client_loss_mean {losses}; launches {launches}; the kernel "
-              f"trainer: {calls} call(s), {steps} steps, launches by wrapper "
-              f"{trainer}, by kernel "
+              f"step: {steps} steps, launches by wrapper {trainer}, by kernel "
               f"{ {k: v for k, v in by_kernel.items() if v} }")
         want_trainer = {w.__name__: k * steps
                         for w, k in DRAWN_DROPOUT_STEP_KERNELS.items()}
         want_kernels = kernel_counts(
             f32_steps=steps if dtype == torch.float32 else 0,
             tc_steps=steps if dtype == torch.bfloat16 else 0)
-        if calls != rounds or trainer != want_trainer \
-                or by_kernel != want_kernels:
+        if trainer != want_trainer or by_kernel != want_kernels:
             raise AssertionError(
-                f"{run}: the kernel trainer ran {calls} time(s) in {rounds} "
-                f"rounds, launches by wrapper {trainer} (expected "
+                f"{run}: the kernel step's launches by wrapper {trainer} "
+                f"in {rounds} rounds (expected "
                 f"{want_trainer}), by kernel {by_kernel} (expected "
                 f"{want_kernels})")
         for kind, counts in (("trainer", trainer), ("kernels", by_kernel)):
@@ -2035,7 +2030,7 @@ def phase_dropout() -> tuple:
 
 
 def phase_drawn_dropout() -> dict:
-    """10, continued: the kernel trainer's ``drawn_dropout`` against its
+    """10, continued: the kernel step's ``drawn_dropout`` against its
     plain version at the round's shapes and keeps, f32 and bf16 (bitwise),
     then timed; returns its row of the kernels line without launches."""
     from multimodal_fl_security_tpu_torch.ops.client_dropout import (
@@ -2103,7 +2098,7 @@ def main() -> None:
     drawn_row["launches"] = trainer["drawn_dropout"]
     print(f"[paths] gram launches: {north_star} (Krum north star) + "
           f"{robust['gram']} (R4); sorted_reduce launches: "
-          f"{robust['sorted_reduce']} (R1-R5); the kernel trainer in R1-R5 "
+          f"{robust['sorted_reduce']} (R1-R5); the kernel step in R1-R5 "
           f"(bf16 R1-R4, f32 R5): by wrapper {robust['trainer']}, by kernel "
           f"{robust['kernels']}; fused_local_train (one call, 38 steps, "
           f"bf16): {fused}; K3 (one call each): "

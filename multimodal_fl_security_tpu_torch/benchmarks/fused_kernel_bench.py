@@ -12,10 +12,10 @@ Counterpart of ``benchmarks/fused_kernel_bench.py`` of the JAX package:
   synthetic clients (``bench.build_engine``). It times four trainers on the
   same data, ms per call after ``torch.cuda.synchronize()``: the kernel
   path, the mirror, the engine's ``make_local_train_fn`` (shuffled, with
-  dropout; on the card the kernel trainer ``kernel_local_train`` with the
-  engine's draws) and the engine's autograd trainer
-  (``autograd_local_train``, what the JAX bench compares against: the same
-  round in plain PyTorch). It also counts the kernel path's launches per
+  dropout; on the card the one loop with the kernel step ``KernelStep`` and
+  the round's draws) and the same loop with the autograd step
+  (``rounds/engine.py::AutogradStep``, what the JAX bench compares
+  against: the same round in plain PyTorch). It also counts the kernel path's launches per
   call by wrapper and by kernel (the conv and dense kernels,
   ``ops/_launch.py::KERNEL_LAUNCHES``), checks that two calls are bitwise
   equal, measures the drift from the mirror, and evaluates the FedAvg of
@@ -153,6 +153,7 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     """The four trainers at the north-star width, with dropout if asked;
     see the module doc."""
     from multimodal_fl_security_tpu_torch.bench import build_engine
+    from multimodal_fl_security_tpu_torch.ops.client_dropout import RoundDraws
     from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
         DROPOUT_STEP_KERNELS,
         LAUNCHES_PER_DROPOUT_STEP,
@@ -167,8 +168,11 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
     )
     from multimodal_fl_security_tpu_torch.ops.reductions import weighted_mean
     from multimodal_fl_security_tpu_torch.rounds.engine import (
-        autograd_local_train,
+        AutogradStep,
         make_local_train_fn,
+    )
+    from multimodal_fl_security_tpu_torch.rounds.local_train import (
+        train_clients,
     )
     from multimodal_fl_security_tpu_torch.utils.metrics import evaluate_model
 
@@ -197,8 +201,11 @@ def run_bench(device="cuda", num_clients: int = 100, samples: int = 600,
         return local_train(params, engine.arrays, mask, gen)[0]
 
     def autograd_trainer():
-        return autograd_local_train(engine.model, engine.spec, params,
-                                    engine.arrays, mask, gen)[0]
+        step = AutogradStep(engine.model, engine.spec, params, num_clients)
+        return train_clients(step, RoundDraws(gen, engine.model.dropout_rates),
+                             images, labels, mask,
+                             local_epochs=engine.spec.local_epochs,
+                             batch_size=engine.spec.batch_size)[0]
 
     def fedavg(clients):
         return evaluate_model(engine.model,

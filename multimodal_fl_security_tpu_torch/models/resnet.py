@@ -51,10 +51,7 @@ from torch import nn
 
 from multimodal_fl_security_tpu_torch.core.pytrees import FlatLayout
 from multimodal_fl_security_tpu_torch.models.registry import MODELS
-from multimodal_fl_security_tpu_torch.models.simple_cnn import (
-    dropout,
-    lecun_normal_,
-)
+from multimodal_fl_security_tpu_torch.models.simple_cnn import lecun_normal_
 from multimodal_fl_security_tpu_torch.utils import tracing
 
 #: GroupNorm's groups and epsilon (flax's ``nn.GroupNorm`` default eps)
@@ -213,15 +210,15 @@ class ResNet(nn.Module):
         return (*module, flax, leaf)
 
     def forward(self, params: torch.Tensor, x: torch.Tensor,
-                train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout=None) -> torch.Tensor:
         """Logits (f32) of every client's model on its own batch.
 
         ``params`` ``[C, D]`` with ``x`` ``[C, B, C_in, H, W]`` gives
         ``[C, B, num_classes]``; ``params`` ``[D]`` with ``x``
-        ``[B, C_in, H, W]`` gives ``[B, num_classes]``. ``train`` turns the
-        head's dropout on, its keep-mask ``[C, B, hidden_dim]`` drawn from
-        ``generator`` in one call.
+        ``[B, C_in, H, W]`` gives ``[B, num_classes]``. ``dropout`` is None
+        (no dropout) or a step's masks (``ops/client_dropout.py::
+        RoundDraws``), called as ``dropout(h, 0)`` on the head's pooled
+        ``[C, B, hidden_dim]``.
         """
         single = params.dim() == 1
         if single:
@@ -250,8 +247,8 @@ class ResNet(nn.Module):
             marks.insert(0, (h, f"stage{s + 1}.bwd"))
         with span("head", device):
             h = h.mean(dim=(2, 3)).view(batch, clients, -1).transpose(0, 1)
-            h = dropout(h, self.dropout_rates[0] if train else 0.0,
-                        generator)
+            if dropout is not None:
+                h = dropout(h, 0)
             logits = torch.baddbmm(p["fc.bias"].unsqueeze(1), h,
                                    p["fc.weight"].transpose(1, 2))
         if tracing.enabled() and logits.requires_grad:

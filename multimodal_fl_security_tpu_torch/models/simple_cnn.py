@@ -22,7 +22,7 @@ layer in f32, as ``simple_cnn.py:105-108`` does; parameters stay f32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,23 +38,6 @@ JAX_MODULES = {
     "fc1": "Dense_0",
     "fc2": "Dense_1",
 }
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a Bernoulli keep-mask drawn from ``generator``.
-
-    ``F.dropout`` takes no generator, so the mask is drawn here: kept
-    entries are scaled by 1/keep, as flax's ``nn.Dropout`` does.
-    """
-    if rate <= 0.0:
-        return x
-    if generator is None:
-        raise ValueError("training-mode dropout needs a torch.Generator")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
 
 
 def _conv_relu_pool(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -115,19 +98,17 @@ class SimpleCNN(nn.Module):
         return (JAX_MODULES[prefix], "bias" if leaf == "bias" else "kernel")
 
     def forward(self, params: torch.Tensor, x: torch.Tensor,
-                train: bool = False,
-                generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                = None) -> torch.Tensor:
+                dropout=None) -> torch.Tensor:
         """Logits (f32) of every client's model on its own batch.
 
         ``params`` ``[C, D]`` with ``x`` ``[C, B, C_in, H, W]`` gives
         ``[C, B, num_classes]``; ``params`` ``[D]`` with ``x``
-        ``[B, C_in, H, W]`` gives ``[B, num_classes]``. ``train`` turns the
-        dropout layers on, drawing their masks from ``generator``;
-        ``dropout_masks`` (``[C, B, 64*h*w]`` and ``[C, B, hidden]``, 1/keep
-        where kept) are applied instead, cast to the compute dtype, as the
-        JAX package's ``fused_train.py:404-412`` applies given masks.
+        ``[B, C_in, H, W]`` gives ``[B, num_classes]``. ``dropout`` is None
+        (no dropout) or a step's masks, called as ``dropout(h, layer)`` on
+        fc1's input ``[C, B, 64*h*w]`` (layer 0) and on its relu output
+        ``[C, B, hidden]`` (layer 1): ``ops/client_dropout.py::RoundDraws``
+        in training, or the masks that ``ops/fused_train.py::
+        mirror_local_train`` is given.
         """
         single = params.dim() == 1
         if single:
@@ -145,18 +126,12 @@ class SimpleCNN(nn.Module):
                             clients, dt)
         # [B, C*64, h, w] -> [C, B, 64*h*w]: per-client (c, h, w) flatten
         h = h.reshape(batch, clients, -1).transpose(0, 1)
-        rate1, rate2 = self.dropout_rates if train else (0.0, 0.0)
-        if dropout_masks is not None:
-            rate1 = rate2 = 0.0
-            m1, m2 = (m.to(dt).reshape(clients, batch, -1)
-                      for m in dropout_masks)
-            h = h * m1
-        h = dropout(h, rate1, generator)
-        h = torch.baddbmm(p["fc1.bias"].to(dt).unsqueeze(1), h,
-                          p["fc1.weight"].to(dt).transpose(1, 2))
-        h = dropout(F.relu(h), rate2, generator)
-        if dropout_masks is not None:
-            h = h * m2
+        if dropout is not None:
+            h = dropout(h, 0)
+        h = F.relu(torch.baddbmm(p["fc1.bias"].to(dt).unsqueeze(1), h,
+                                 p["fc1.weight"].to(dt).transpose(1, 2)))
+        if dropout is not None:
+            h = dropout(h, 1)
         logits = torch.baddbmm(p["fc2.bias"].unsqueeze(1), h.float(),
                                p["fc2.weight"].transpose(1, 2))
         return logits[0] if single else logits

@@ -13,21 +13,19 @@ the activation in that dtype; the backward multiplies the gradient by the
 same regenerated mask.
 
 :func:`drawn_dropout` takes its mask from data instead: uniforms ``u``
-[C, B, F] that the engine's round generator drew, as
-``rounds/engine.py``'s autograd trainer draws them
-(``models/simple_cnn.py::dropout``). It keeps an element where ``u <
-keep`` and divides it by ``keep``, as that function's ``x / keep`` does on
-the CPU (on CUDA PyTorch multiplies by the f32 reciprocal instead, at most
-a rounding apart); the backward applies the same ``u`` to the gradient.
-:class:`PhiloxDropout` and :class:`DrawnDropout` are the two mask sources
-that ``ops/fused_kernel.py::step_grads`` takes.
+[C, B, F] that the round's generator drew (:class:`RoundDraws`). It keeps
+an element where ``u < keep`` and divides it by ``keep``, as the models'
+dropout (``x / keep``) does on the CPU (on CUDA PyTorch multiplies by the
+f32 reciprocal instead, at most a rounding apart); the backward applies the
+same ``u`` to the gradient. :class:`PhiloxDropout` and :class:`RoundDraws`
+are the draws that ``rounds/local_train.py::train_clients`` takes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -174,32 +172,68 @@ _STREAMS = (STREAM_FC1_IN, STREAM_FC1_OUT)
 
 
 class PhiloxDropout(NamedTuple):
-    """fc1's two masks of global SGD step ``step``, drawn inside the kernel
-    from Philox under ``seed`` (``fused_local_train(use_dropout=True)``);
-    ``keeps`` holds each layer's keep probability."""
+    """K4's draws (``fused_local_train``): each client's rows as they lie,
+    and with ``keeps`` (each layer's keep probability; () drops nothing)
+    fc1's two masks of global SGD step ``step``, drawn inside the kernel
+    from Philox under ``seed``, forward and backward alike."""
 
     seed: int
-    step: int
-    keeps: Tuple[float, float]
+    keeps: Tuple[float, ...]
+    step: int = 0
 
-    def apply(self, t: torch.Tensor, layer: int,
-              dtype: torch.dtype) -> torch.Tensor:
+    def order(self, mask):
+        return None
+
+    def masks(self, step):
+        return self._replace(step=step) if self.keeps else None
+
+    def apply(self, t, layer, dtype):
         return dropout_apply(t, seed=self.seed, step=self.step,
                              stream=_STREAMS[layer], keep=self.keeps[layer],
                              dtype=dtype)
 
+    again = apply
 
-class DrawnDropout(NamedTuple):
-    """fc1's two masks from the uniforms the round generator drew for one
-    step: ``uniforms[layer]`` [C, B, F], or None for a layer at rate 0,
-    which drops nothing."""
 
-    uniforms: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
-    keeps: Tuple[float, float]
+class RoundDraws:
+    """The round's draws from its generator, as the benchmark's reference
+    replays them: each epoch ``torch.rand([C, N]).argsort(dim=1)``; each
+    step, at each dropout layer above rate 0 in forward order,
+    ``torch.rand(t.shape) < keep`` (kept elements divided by keep). Models
+    call ``draws(t, layer)``; the kernel step :meth:`apply`, then
+    :meth:`again` on the same uniforms in its backward."""
 
-    def apply(self, t: torch.Tensor, layer: int,
-              dtype: torch.dtype) -> torch.Tensor:
-        u = self.uniforms[layer]
+    def __init__(self, generator: torch.Generator, rates):
+        if generator is None:
+            raise ValueError("training-mode dropout needs a torch.Generator")
+        self.generator = generator
+        self.keeps = tuple(check_rate(r) for r in rates)
+        self.uniforms: List[Optional[torch.Tensor]] = [None] * len(rates)
+
+    def order(self, mask):
+        return torch.rand(mask.shape, generator=self.generator,
+                          device=mask.device).argsort(dim=1)
+
+    def masks(self, step):
+        return self
+
+    def _draw(self, t, layer):
+        self.uniforms[layer] = None if self.keeps[layer] == 1.0 else \
+            torch.rand(t.shape, generator=self.generator, device=t.device)
+        return self.uniforms[layer]
+
+    def __call__(self, t, layer):
+        u, keep = self._draw(t, layer), self.keeps[layer]
         if u is None:
             return t
-        return drawn_dropout(t, u, keep=self.keeps[layer], dtype=dtype)
+        return torch.where(u < keep, t / keep, torch.zeros(
+            (), dtype=t.dtype, device=t.device))
+
+    def apply(self, t, layer, dtype):
+        self._draw(t, layer)
+        return self.again(t, layer, dtype)
+
+    def again(self, t, layer, dtype):
+        u = self.uniforms[layer]
+        return t if u is None else drawn_dropout(t, u, keep=self.keeps[layer],
+                                                 dtype=dtype)

@@ -29,8 +29,9 @@ dropped activations are new buffers: conv2's gradient kernels read the
 pooled map itself. The kernels read each layer's
 weights in place from the ``[C, D]`` parameter buffer and write gradients
 straight into the ``[C, D]`` gradient buffer's segments (the port's
-``FlatLayout``): no per-step copies of weights or gradients. The call
-allocates the three ``[C, D]`` buffers (params, momentum, gradient) once;
+``FlatLayout``): no per-step copies of weights or gradients. A
+:class:`KernelStep` allocates the three ``[C, D]`` buffers (params,
+momentum, gradient) once;
 each step's activations and argmax maps come from PyTorch's caching
 allocator, which hands the same blocks back every step.
 
@@ -45,17 +46,16 @@ gradient, m = g*scale + mu*m, p -= lr*m, no weight decay; dropout at rates
 (0.25, 0.5) on fc1's input and output, per (client, step), as
 ``fused_kernel.py:403-413`` draws it, on Philox instead of the TPU's bits.
 
-:func:`kernel_local_train` is the round engine's trainer for the input
-that ``rounds/engine.py::kernel_trainer_takes`` admits: the same step on
-the same kernels, with the batch orders and dropout uniforms drawn from the
-round's ``torch.Generator`` as the engine's autograd trainer draws them
-(the masks applied by ``drawn_dropout``), and each client's loss returned.
+:class:`KernelStep` is this step in the port's one local-training loop
+(``rounds/local_train.py``), which :func:`fused_local_train` runs and the
+round engine runs for the input that :func:`kernel_step_takes` admits.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
 from multimodal_fl_security_tpu_torch.ops.client_conv import (
     conv_dgrad,
     conv_fwd,
@@ -66,7 +66,6 @@ from multimodal_fl_security_tpu_torch.ops.client_dense import (
     dense_fwd,
 )
 from multimodal_fl_security_tpu_torch.ops.client_dropout import (
-    DrawnDropout,
     PhiloxDropout,
     check_rate,
     drawn_dropout,
@@ -79,12 +78,12 @@ from multimodal_fl_security_tpu_torch.ops.client_sgd import (
 )
 from multimodal_fl_security_tpu_torch.ops.fused_train import (
     B,
-    F1,
     HID,
     NCLS,
     check_inputs,
+    kernels_take,
 )
-from multimodal_fl_security_tpu_torch.utils import tracing
+from multimodal_fl_security_tpu_torch.rounds.local_train import train_clients
 
 #: the kernel wrappers one SGD step launches, with their launches per step
 #: (each wrapper runs the kernel of the compute dtype: ``conv_fwd`` the
@@ -98,15 +97,15 @@ LAUNCHES_PER_STEP = sum(STEP_KERNELS.values())
 DROPOUT_STEP_KERNELS = {**STEP_KERNELS, dropout_apply: 4}
 #: kernel launches of one SGD step with dropout (16)
 LAUNCHES_PER_DROPOUT_STEP = sum(DROPOUT_STEP_KERNELS.values())
-#: the same with the drawn masks of :func:`kernel_local_train` (also 16)
+#: the same with the round's drawn masks (``RoundDraws``; also 16)
 DRAWN_DROPOUT_STEP_KERNELS = {**STEP_KERNELS, drawn_dropout: 4}
 
 
 def step_forward(views, x, labels, mask, dtype, dropout=None):
     """Forward and loss of every client on batch ``x`` [C, B, cin, 28, 28]
     from the parameters' ``views``: returns each client's loss [C] and the
-    tape that :func:`step_backward` reads. ``dropout`` is None or a mask
-    source (``PhiloxDropout``, ``DrawnDropout``)."""
+    tape that :func:`step_backward` reads. ``dropout`` is None or a
+    step's masks (``PhiloxDropout``, ``RoundDraws``)."""
     f32 = torch.float32
     c, bsz = x.shape[:2]
 
@@ -125,14 +124,18 @@ def step_forward(views, x, labels, mask, dtype, dropout=None):
     logits = dense_fwd(h4d, views["fc2.weight"], views["fc2.bias"],
                        wdtype=f32, out_dtype=f32)
     loss, dlogits = client_ce(logits, labels, mask)
-    return loss, (x, h1, a1, h3, a3, f3d, h4d, dlogits, drop)
+    return loss, (x, h1, a1, h3, a3, f3d, h4d, dlogits, dropout)
 
 
 def step_backward(views, grads, tape, dtype) -> None:
     """The backward of :func:`step_forward`'s ``tape``: writes each layer's
     gradient into ``grads`` (views of the [C, D] gradient buffer)."""
     f32 = torch.float32
-    x, h1, a1, h3, a3, f3d, h4d, dlogits, drop = tape
+    x, h1, a1, h3, a3, f3d, h4d, dlogits, dropout = tape
+
+    def drop(g, layer):  # the forward's masks again
+        return g if dropout is None else dropout.again(g, layer, dtype)
+
     # mask=h4d zeroes where relu or the dropout did; drop() then scales.
     dz4 = drop(dense_bwd(dlogits, h4d, views["fc2.weight"],
                          grads["fc2.weight"], grads["fc2.bias"], mask=h4d,
@@ -148,35 +151,60 @@ def step_backward(views, grads, tape, dtype) -> None:
                dtype=dtype)
 
 
-def step_grads(views, grads, x, labels, mask, dtype,
-               dropout=None) -> torch.Tensor:
-    """Forward, loss and backward of every client on batch ``x``
-    [C, B, cin, 28, 28]: writes each layer's gradient into ``grads`` (views
-    of the [C, D] gradient buffer) from the parameters' ``views``, and
-    returns each client's loss [C]. ``dropout`` is None or a mask source
-    (``PhiloxDropout``, ``DrawnDropout``)."""
-    loss, tape = step_forward(views, x, labels, mask, dtype, dropout)
-    step_backward(views, grads, tape, dtype)
-    return loss
+def kernel_step_takes(model, spec, images: torch.Tensor) -> bool:
+    """Whether :class:`KernelStep` trains this input in the round engine:
+    the port's SimpleCNN at the kernels' widths (28x28 images, 10 classes,
+    128 hidden) computing in f32 or bf16; ``images`` [C, N, cin, 28, 28]
+    f32 on a CUDA device with 1-8 channels; ``spec``
+    (``rounds/engine.py::TrainSpec``) at batch 32 with no weight decay and
+    no label smoothing."""
+    return (type(model) is SimpleCNN
+            and model.image_size == (28, 28)
+            and model.num_classes == NCLS
+            and model.hidden_dim == HID
+            and model.dtype in (torch.float32, torch.bfloat16)
+            and kernels_take(images)
+            and images.dtype == torch.float32
+            and images.device.type == "cuda"
+            and spec.batch_size == B
+            and not spec.weight_decay and not spec.label_smoothing)
 
 
-def _client_buffers(params, clients, cin, compute_dtype):
-    """The call's [C, D] parameters (every client at the global
-    ``params``), zero momentum and gradient, and the layer views of the
-    parameters and the gradient."""
-    from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
+class KernelStep:
+    """The step of ``rounds/local_train.py::train_clients`` on the kernels
+    over three [C, D] buffers made once: the parameters (every client at the
+    global ``params`` [D]), a zero momentum and the gradient. ``images``
+    [C, N, cin, 28, 28] gives C and cin."""
 
-    layout = SimpleCNN(num_classes=NCLS).layout(cin)
-    if params.shape[0] != layout.dim:
-        raise ValueError(f"params has {params.shape[0]} elements; SimpleCNN "
-                         f"at {cin} channel(s) has {layout.dim}")
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"compute_dtype must be f32 or bf16, got "
-                        f"{compute_dtype}")
-    p = params.detach().float().expand(clients, -1).contiguous()
-    mom = torch.zeros_like(p)
-    grad = torch.empty_like(p)  # every element is written each step
-    return p, mom, grad, layout.views(p), layout.views(grad)
+    def __init__(self, params, images, compute_dtype, *, learning_rate,
+                 momentum, clip_norm):
+        layout = SimpleCNN(num_classes=NCLS).layout(images.shape[2])
+        if params.shape[0] != layout.dim:
+            raise ValueError(f"params has {params.shape[0]} elements; "
+                             f"SimpleCNN at {images.shape[2]} channel(s) has "
+                             f"{layout.dim}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"compute_dtype must be f32 or bf16, got "
+                            f"{compute_dtype}")
+        self.params = params.detach().float().expand(images.shape[0], -1) \
+            .contiguous()
+        self.mom = torch.zeros_like(self.params)
+        self.grad = torch.empty_like(self.params)  # all written each step
+        self.views, self.grads = (layout.views(self.params),
+                                  layout.views(self.grad))
+        self.dtype = compute_dtype
+        self.sgd = dict(lr=learning_rate, momentum=momentum,
+                        clip_norm=clip_norm)
+
+    def forward(self, x, labels, mask, dropout):
+        return step_forward(self.views, x, labels, mask, self.dtype, dropout)
+
+    def backward(self, tape):
+        step_backward(self.views, self.grads, tape, self.dtype)
+
+    def update(self):
+        client_sgd_update(self.params, self.mom, self.grad,
+                          client_sq_norm(self.grad), **self.sgd)
 
 
 def fused_local_train(params: torch.Tensor, images: torch.Tensor,
@@ -195,80 +223,11 @@ def fused_local_train(params: torch.Tensor, images: torch.Tensor,
     stay f32. ``use_dropout`` drops fc1's input and output at
     ``dropout_rates`` with the masks of ``seed`` (``ops/philox.py``).
     Returns the clients' parameters [C, D]."""
-    c, _, steps, cin = check_inputs(params, images, labels, bmask)
+    check_inputs(params, images, labels, bmask)
     keeps = tuple(check_rate(r) for r in dropout_rates) if use_dropout \
         else ()
-    p, mom, grad, views, grads = _client_buffers(params, c, cin,
-                                                 compute_dtype)
-    labels = labels.long()
-    mask = bmask.float()
-    for s in range(local_epochs * steps):
-        i = (s % steps) * B
-        step_grads(views, grads, images[:, i:i + B], labels[:, i:i + B],
-                   mask[:, i:i + B], compute_dtype,
-                   PhiloxDropout(seed, s, keeps) if use_dropout else None)
-        client_sgd_update(p, mom, grad, client_sq_norm(grad),
-                          lr=learning_rate, momentum=momentum,
-                          clip_norm=clip_norm)
-    return p
-
-
-def kernel_local_train(params: torch.Tensor, images: torch.Tensor,
-                       labels: torch.Tensor, bmask: torch.Tensor,
-                       generator: torch.Generator, *, learning_rate: float,
-                       momentum: float = 0.9, clip_norm: float = 1.0,
-                       local_epochs: int = 1,
-                       compute_dtype: torch.dtype = torch.bfloat16,
-                       dropout_rates=(0.25, 0.5)):
-    """Every client's local SGD from the global ``params`` [D] on the
-    kernels, trained and drawn as ``rounds/engine.py``'s autograd trainer
-    trains and draws: per epoch a fresh order of each client's rows,
-    ``torch.rand(bmask.shape).argsort(dim=1)`` from ``generator``; per step,
-    for each of fc1's dropout layers at a rate above 0, its uniforms
-    ``torch.rand([C, B, F])`` (fc1's input, then its relu output); step s of
-    an epoch reads each client's rows ``order[s*32 : s*32+32]``.
-    ``images`` [C, N, cin, 28, 28] f32, ``labels`` [C, N], ``bmask`` [C, N]
-    f32 (0 = padded row). Returns the clients' parameters [C, D] and each
-    client's loss [C]: the mean over epochs of the mean of its steps'
-    losses. On CPU tensors every kernel's plain version runs.
-    ``kernel_local_train.calls`` counts calls.
-
-    While a profiler session records, each step is three spans
-    (``utils/tracing.py``): ``forward`` (the draws, the gathers and the
-    launches through ``client_ce``), ``backward`` and ``optimizer``."""
-    c, _, steps, cin = check_inputs(params, images, labels, bmask)
-    keeps = tuple(check_rate(r) for r in dropout_rates)
-    p, mom, grad, views, grads = _client_buffers(params, c, cin,
-                                                 compute_dtype)
-    device = bmask.device
-    rows = torch.arange(c, device=device).unsqueeze(1)
-    labels, mask = labels.long(), bmask.float()
-    epoch_losses = []
-    for _ in range(local_epochs):
-        perm = torch.rand(bmask.shape, generator=generator,
-                          device=device).argsort(dim=1)
-        step_losses = []
-        for s in range(steps):
-            with tracing.span("forward", device):
-                uniforms = tuple(
-                    torch.rand((c, B, width), generator=generator,
-                               device=device) if keep < 1.0 else None
-                    for width, keep in zip((F1, HID), keeps))
-                idx = perm[:, s * B:(s + 1) * B]
-                loss, tape = step_forward(
-                    views, images[rows, idx], labels.gather(1, idx),
-                    mask.gather(1, idx), compute_dtype,
-                    DrawnDropout(uniforms, keeps))
-            with tracing.span("backward", device):
-                step_backward(views, grads, tape, compute_dtype)
-            with tracing.span("optimizer", device):
-                client_sgd_update(p, mom, grad, client_sq_norm(grad),
-                                  lr=learning_rate, momentum=momentum,
-                                  clip_norm=clip_norm)
-            step_losses.append(loss)
-        epoch_losses.append(torch.stack(step_losses).mean(dim=0))
-    kernel_local_train.calls += 1
-    return p, torch.stack(epoch_losses).mean(dim=0)
-
-
-kernel_local_train.calls = 0
+    step = KernelStep(params, images, compute_dtype,
+                      learning_rate=learning_rate, momentum=momentum,
+                      clip_norm=clip_norm)
+    return train_clients(step, PhiloxDropout(seed, keeps), images, labels,
+                         bmask, local_epochs=local_epochs, batch_size=B)[0]

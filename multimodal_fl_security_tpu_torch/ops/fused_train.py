@@ -113,9 +113,12 @@ def mirror_local_train(params: torch.Tensor, images: torch.Tensor,
     trace = torch.zeros_like(stacked)
     for s in range(local_epochs * steps):
         i = (s % steps) * B
-        masks = None if dropout_masks is None else \
-            (dropout_masks[0][s], dropout_masks[1][s])
-        logits = model(stacked, images[:, i:i + B], dropout_masks=masks)
+        # the given masks times each layer's activation in the compute
+        # dtype, as the JAX package's fused_train.py:404-412 applies them
+        drop = None if dropout_masks is None else (
+            lambda t, layer, s=s:
+            t * dropout_masks[layer][s].to(t.dtype).reshape(t.shape))
+        logits = model(stacked, images[:, i:i + B], drop)
         losses = cross_entropy(logits, labels[:, i:i + B], bmask[:, i:i + B])
         stacked.grad = None
         losses.sum().backward()  # disjoint rows: row c is client c's gradient

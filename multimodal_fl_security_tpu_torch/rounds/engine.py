@@ -19,10 +19,10 @@ weight decay, then momentum 0.9, then the learning rate; cross-entropy
 averaged over the real (unpadded) samples of each batch; ``local_epochs``
 passes over the shard in a fresh random order per epoch.
 
-Which trainer runs is decided by the input (:func:`kernel_trainer_takes`):
-SimpleCNN at batch 32 on a CUDA device trains on the hand-written kernels
-(``ops/fused_kernel.py::kernel_local_train``), with the same draws from the
-round's generator; every other input through autograd as above.
+Every input trains in the one loop of ``rounds/local_train.py`` with the
+round's draws; SimpleCNN at batch 32 on a CUDA device steps on the
+hand-written kernels (``ops/fused_kernel.py::kernel_step_takes``), every
+other input through autograd as above (:class:`AutogradStep`).
 
 Features of the JAX engine that this slice leaves out raise
 ``NotImplementedError`` naming the JAX lines they would port.
@@ -37,11 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_fl_security_tpu_torch.data.stacking import ClientData
-from multimodal_fl_security_tpu_torch.models.simple_cnn import SimpleCNN
-from multimodal_fl_security_tpu_torch.ops import fused_train
+from multimodal_fl_security_tpu_torch.ops.client_dropout import RoundDraws
 from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
-    kernel_local_train,
+    KernelStep,
+    kernel_step_takes,
 )
+from multimodal_fl_security_tpu_torch.rounds.local_train import train_clients
 from multimodal_fl_security_tpu_torch.utils import tracing
 
 _JAX_ENGINE = "multimodal_fl_security_tpu/rounds/engine.py"
@@ -106,23 +107,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mask).sum(dim=-1) / denom
 
 
-def kernel_trainer_takes(model, spec: TrainSpec,
-                         images: torch.Tensor) -> bool:
-    """Whether the hand-written kernels train this input
-    (``ops/fused_kernel.py::kernel_local_train``): the port's SimpleCNN at
-    the kernels' widths (28x28 images, 10 classes, 128 hidden) computing in
-    f32 or bf16; ``images`` [C, N, cin, 28, 28] f32 on a CUDA device with
-    1-8 channels; batch 32; no weight decay and no label smoothing."""
-    return (type(model) is SimpleCNN
-            and model.image_size == (28, 28)
-            and model.num_classes == fused_train.NCLS
-            and model.hidden_dim == fused_train.HID
-            and model.dtype in (torch.float32, torch.bfloat16)
-            and fused_train.kernels_take(images)
-            and images.dtype == torch.float32
-            and images.device.type == "cuda"
-            and spec.batch_size == fused_train.B
-            and not spec.weight_decay and not spec.label_smoothing)
+class AutogradStep:
+    """The step of ``rounds/local_train.py::train_clients`` through
+    autograd: the model's forward and :func:`cross_entropy`, one backward of
+    the summed losses, :func:`sgd_step`; every client starts at the global
+    ``params`` [D]."""
+
+    def __init__(self, model, spec: TrainSpec, params, clients: int):
+        self.model, self.spec = model, spec
+        self.params = params.detach().expand(clients, -1).clone()
+        self.params.requires_grad_(True)
+        self.trace = (torch.zeros_like(self.params) if spec.momentum > 0
+                      else None)
+
+    def forward(self, x, labels, mask, dropout):
+        losses = cross_entropy(self.model(self.params, x, dropout), labels,
+                               mask, self.spec.label_smoothing)
+        return losses.detach(), losses
+
+    def backward(self, losses):
+        self.params.grad = None
+        losses.sum().backward()
+
+    def update(self):
+        with torch.no_grad():
+            sgd_step(self.params, self.params.grad, self.trace, self.spec)
 
 
 def make_local_train_fn(model, spec: TrainSpec, n_samples: int) -> Callable:
@@ -133,8 +142,7 @@ def make_local_train_fn(model, spec: TrainSpec, n_samples: int) -> Callable:
     ``mask`` is ``[C, N_max]``. Returns the trained client buffer ``[C, D]``
     and each client's mean training loss ``[C]``. Batch orders and dropout
     masks are drawn from ``generator``. N_max must be a multiple of the
-    batch size. An input that :func:`kernel_trainer_takes` trains on the
-    kernels, with the same draws; any other through autograd.
+    batch size.
     """
     if n_samples % spec.batch_size != 0:
         raise ValueError("pad N_max to a batch-size multiple")
@@ -149,56 +157,19 @@ def make_local_train_fn(model, spec: TrainSpec, n_samples: int) -> Callable:
                     mask: torch.Tensor, generator: torch.Generator
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         images = data["image"]
-        if kernel_trainer_takes(model, spec, images):
-            return kernel_local_train(
-                params, images, data["label"], mask, generator,
-                learning_rate=spec.learning_rate, momentum=spec.momentum,
-                clip_norm=spec.clip_norm, local_epochs=spec.local_epochs,
-                compute_dtype=model.dtype, dropout_rates=model.dropout_rates)
-        return autograd_local_train(model, spec, params, data, mask,
-                                    generator)
+        if kernel_step_takes(model, spec, images):
+            step = KernelStep(params, images, model.dtype,
+                              learning_rate=spec.learning_rate,
+                              momentum=spec.momentum,
+                              clip_norm=spec.clip_norm)
+        else:
+            step = AutogradStep(model, spec, params, mask.shape[0])
+        return train_clients(step, RoundDraws(generator, model.dropout_rates),
+                             images, data["label"], mask,
+                             local_epochs=spec.local_epochs,
+                             batch_size=spec.batch_size)
 
     return local_train
-
-
-def autograd_local_train(model, spec: TrainSpec, params: torch.Tensor,
-                         data: Dict[str, torch.Tensor], mask: torch.Tensor,
-                         generator: torch.Generator
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The trainer of :func:`make_local_train_fn` for an input that the
-    kernels do not take: the model's forward, ``cross_entropy`` and
-    autograd, then :func:`sgd_step`, with the arguments and results of
-    ``local_train``."""
-    images, labels = data["image"], data["label"]
-    bsz = spec.batch_size
-    steps = mask.shape[1] // bsz
-    clients, device = mask.shape[0], mask.device
-    rows = torch.arange(clients, device=device).unsqueeze(1)
-    stacked = params.detach().expand(clients, -1).clone()
-    stacked.requires_grad_(True)
-    trace = torch.zeros_like(stacked) if spec.momentum > 0 else None
-    epoch_losses = []
-    for _ in range(spec.local_epochs):
-        perm = torch.rand(mask.shape, generator=generator,
-                          device=device).argsort(dim=1)
-        step_losses = []
-        for s in range(steps):
-            idx = perm[:, s * bsz:(s + 1) * bsz]
-            with tracing.span("forward", device):
-                logits = model(stacked, images[rows, idx], train=True,
-                               generator=generator)
-                losses = cross_entropy(logits, labels.gather(1, idx),
-                                       mask.gather(1, idx),
-                                       spec.label_smoothing)
-            stacked.grad = None
-            with tracing.span("backward", device):
-                losses.sum().backward()
-            with torch.no_grad(), tracing.span("optimizer", device):
-                sgd_step(stacked, stacked.grad, trace, spec)
-            step_losses.append(losses.detach())
-        epoch_losses.append(torch.stack(step_losses).mean(dim=0))
-    stacked.grad = None
-    return stacked.detach(), torch.stack(epoch_losses).mean(dim=0)
 
 
 class RoundEngine:

@@ -24,7 +24,7 @@ def evaluate_model(model, params: torch.Tensor,
     correct = torch.zeros((), dtype=torch.float32, device=params.device)
     loss_sum = torch.zeros((), dtype=torch.float32, device=params.device)
     for lo in range(0, labels.shape[0], batch_size):
-        logits = model(params, images[lo:lo + batch_size], train=False)
+        logits = model(params, images[lo:lo + batch_size])
         y = labels[lo:lo + batch_size]
         correct += (logits.argmax(dim=-1) == y).sum()
         loss_sum += F.cross_entropy(logits.float(), y, reduction="sum")

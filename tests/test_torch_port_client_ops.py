@@ -57,7 +57,10 @@ from multimodal_fl_security_tpu_torch.ops.client_sgd import (
     sgd_update_bounds,
     ulp,
 )
-from multimodal_fl_security_tpu_torch.ops.fused_kernel import step_grads
+from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+    step_backward,
+    step_forward,
+)
 
 C, B, CIN = 2, 32, 8
 
@@ -227,7 +230,7 @@ def window_gap(z):
 def test_bf16_forward_oracle_matches_jax_mirror(case):
     """The plain bf16 chain the kernels are held to (the stem and conv2
     through ``conv_fwd_plain``, fc1 and fc2 through ``dense_fwd_plain``:
-    ``step_grads``'s forward on the CPU) against the JAX package's
+    ``step_forward`` on the CPU) against the JAX package's
     ``forward_impl`` in bf16 (``mirror_forward``'s, captured through its
     dot callables). JAX rounds each tap partial and each running sum to
     bf16 (the stem's 4 taps per group, conv2's 9, fc1's 28 row partials;
@@ -347,10 +350,11 @@ def test_step_grads_match_folded_jax_grads(case):
     want = params_from_jax(model, stack_trees([s[1] for s in steps]),
                            device="cpu")
     grad = torch.full_like(case["params"], float("nan"))
-    loss = step_grads(layout.views(case["params"]), layout.views(grad),
-                      nchw(case["images"]),
-                      torch.from_numpy(case["labels"]).long(),
-                      torch.from_numpy(case["mask"]), torch.float32)
+    views = layout.views(case["params"])
+    loss, tape = step_forward(views, nchw(case["images"]),
+                              torch.from_numpy(case["labels"]).long(),
+                              torch.from_numpy(case["mask"]), torch.float32)
+    step_backward(views, layout.views(grad), tape, torch.float32)
     np.testing.assert_allclose(loss.numpy(), [s[0] for s in steps],
                                rtol=1e-6, atol=1e-6)
     assert bool(torch.isfinite(grad).all())  # every element written
@@ -363,7 +367,7 @@ def test_step_grads_match_folded_jax_grads(case):
 def test_bf16_fc1_backward_oracle_matches_jax_grad(case):
     """The plain bf16 fc1 backward the tensor-core kernel ``dense_bwd_tc``
     is held to (``dense_bwd_plain`` with wdtype, gdtype and dx in bf16:
-    ``step_grads``'s on the CPU) against the JAX package's bf16 gradient of
+    ``step_backward``'s on the CPU) against the JAX package's bf16 gradient of
     ``mirror_forward`` (``jax.grad`` of ``packed_ce``, folded). Both sides
     get the same operands: JAX's pooled map and the cotangent of fc1's
     product, read through ``forward_impl``'s ``bdot`` (zero taps whose

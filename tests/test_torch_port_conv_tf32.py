@@ -212,7 +212,7 @@ def conv2_wgrad_3xtf32(x, dp, h, arg):
 
 def port_step_conv2(case):
     """The port's forward and backward of one step on the case's batch up
-    to conv2's weight gradient (as ``ops/fused_kernel.py::step_grads`` runs
+    to conv2's weight gradient (as ``ops/fused_kernel.py::step_backward`` runs
     it, on the CPU's plain versions): conv2's input, the pooled gradient,
     map and argmax."""
     t = port_step(case)

@@ -265,9 +265,10 @@ def test_route_sends_fc1_to_the_3xtf32_kernels():
 
 def test_step_grads_with_emulated_fc1_match_folded_jax_grads(case,
                                                              monkeypatch):
-    """One port step (``fused_kernel.step_grads``, f32) with fc1's forward
-    and backward emulated as the 3xTF32 kernels compute them (fc2 on the
-    plain versions, as the route sends it to the CUDA-core kernels): the
+    """One port step (``fused_kernel.step_forward`` and ``step_backward``,
+    f32) with fc1's forward and backward emulated as the 3xTF32 kernels
+    compute them (fc2 on the plain versions, as the route sends it to the
+    CUDA-core kernels): the
     loss and every layer's gradient (fc1's dW and db, and through dh3
     conv2's and the stem's) against the JAX side's folded gradients of the
     same step, at ``test_step_grads_match_folded_jax_grads``'s tolerance
@@ -309,10 +310,11 @@ def test_step_grads_with_emulated_fc1_match_folded_jax_grads(case,
     want = params_from_jax(model, stack_trees([s[1] for s in steps]),
                            device="cpu")
     grad = torch.full_like(case["params"], float("nan"))
-    loss = fused_kernel.step_grads(
-        layout.views(case["params"]), layout.views(grad),
-        nchw(case["images"]), torch.from_numpy(case["labels"]).long(),
+    views = layout.views(case["params"])
+    loss, tape = fused_kernel.step_forward(
+        views, nchw(case["images"]), torch.from_numpy(case["labels"]).long(),
         torch.from_numpy(case["mask"]), torch.float32)
+    fused_kernel.step_backward(views, layout.views(grad), tape, torch.float32)
     assert emulated == ["fwd", "bwd"]  # fc1 only, once each
     np.testing.assert_allclose(loss.numpy(), [s[0] for s in steps],
                                rtol=1e-6, atol=1e-6)

@@ -26,8 +26,8 @@ import torch
 
 from multimodal_fl_security_tpu_torch.models import create_model
 from multimodal_fl_security_tpu_torch.models.from_jax import params_from_jax
-from multimodal_fl_security_tpu_torch.models.simple_cnn import dropout
 from multimodal_fl_security_tpu_torch.ops.client_dropout import (
+    RoundDraws,
     drawn_dropout,
     drawn_dropout_plain,
     dropout_apply,
@@ -166,12 +166,12 @@ def test_mask_rounds_to_the_compute_dtype():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.25, 0.5, 0.1])
 def test_drawn_dropout_is_the_engines_dropout(dtype, rate):
-    """The mask from data (the kernel trainer's) against the engine's
-    ``models/simple_cnn.py::dropout`` on the uniforms drawn from one seed:
-    bitwise on the CPU, the kept elements divided by keep."""
+    """The mask from data (the kernel step's) against the models' dropout
+    (``RoundDraws`` called by the model) on the uniforms drawn from one
+    seed: bitwise on the CPU, the kept elements divided by keep."""
     x = torch.randn((3, 32, 200), generator=torch.Generator().manual_seed(1)
                     ).to(dtype)
-    want = dropout(x, rate, torch.Generator().manual_seed(2))
+    want = RoundDraws(torch.Generator().manual_seed(2), (rate,))(x, 0)
     u = torch.rand(x.shape, generator=torch.Generator().manual_seed(2))
     got = drawn_dropout(x, u, keep=1.0 - rate, dtype=dtype)
     assert got.dtype == dtype and torch.equal(got, want)

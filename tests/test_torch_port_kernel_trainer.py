@@ -1,23 +1,23 @@
-"""The round engine's kernel trainer (``ops/fused_kernel.py::
-kernel_local_train``) and the rule that dispatches it
-(``rounds/engine.py::kernel_trainer_takes``).
+"""The round engine's kernel step (``ops/fused_kernel.py::KernelStep``) in
+the one local-training loop (``rounds/local_train.py::train_clients``), and
+the rule that picks it (``ops/fused_kernel.py::kernel_step_takes``).
 
-On the CPU the kernel trainer runs every kernel's plain version in the
-kernels' sequence of steps. It is held to the engine's autograd trainer
-(``make_local_train_fn``, which trains through autograd on the CPU) from
-two generators seeded alike: C=3 clients x 64 rows, one client's shard half
-padded, batch 32, 2 epochs, f32. Both draw each epoch's batch orders and
-each step's dropout uniforms from the generator in the same order, so the
-rows agree to f32 rounding (atol 1e-5), the losses to 1e-6 plus 1e-6 of
-their value (a few f32 roundings of lse - z_y, which cancels logits larger
-than the loss: 1.2e-6 at 2.38 measured), and the generators end in the
-same state. At rates (0, 0) nothing but the batch orders is drawn.
+On the CPU the kernel step runs every kernel's plain version in the
+kernels' sequence of steps. The loop with it is held to the loop with the
+engine's autograd step (``rounds/engine.py::AutogradStep``, which the
+engine takes on the CPU) from two generators seeded alike, each the
+round's draws (``RoundDraws``): C=3 clients x 64 rows, one client's shard
+half padded, batch 32, 2 epochs, f32. Both draw each epoch's batch orders
+and each step's dropout uniforms from the generator in the same order, so
+the rows agree to f32 rounding (atol 1e-5), the losses to 1e-6 plus 1e-6
+of their value (a few f32 roundings of lse - z_y, which cancels logits
+larger than the loss: 1.2e-6 at 2.38 measured), and the generators end in
+the same state. At rates (0, 0) nothing but the batch orders is drawn.
 
-The ``cuda`` cases run on the card and skip without one: the engine
-dispatches the kernel trainer there (its call counter and
-``LAUNCHES_PER_DROPOUT_STEP`` launches a step), and an f32 call of the
-benchmark cells' 38 steps runs the stem's weight gradient on
-``stem_wgrad_tf32`` once a step.
+The ``cuda`` cases run on the card and skip without one: the engine takes
+the kernel step there (``LAUNCHES_PER_DROPOUT_STEP`` launches a step), and
+an f32 call of the benchmark cells' 38 steps runs the stem's weight
+gradient on ``stem_wgrad_tf32`` once a step.
 """
 
 import numpy as np
@@ -31,16 +31,19 @@ from multimodal_fl_security_tpu_torch.ops._launch import (
     reset_kernel_launches,
 )
 from multimodal_fl_security_tpu_torch.ops.client_conv import conv_wgrad
+from multimodal_fl_security_tpu_torch.ops.client_dropout import RoundDraws
 from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
     DRAWN_DROPOUT_STEP_KERNELS,
     LAUNCHES_PER_DROPOUT_STEP,
-    kernel_local_train,
+    KernelStep,
+    kernel_step_takes,
 )
 from multimodal_fl_security_tpu_torch.rounds.engine import (
+    AutogradStep,
     TrainSpec,
-    kernel_trainer_takes,
     make_local_train_fn,
 )
+from multimodal_fl_security_tpu_torch.rounds.local_train import train_clients
 from multimodal_fl_security_tpu_torch.utils import tracing
 
 C, N, B, EPOCHS, LR = 3, 64, 32, 2, 0.05
@@ -60,21 +63,31 @@ def make_case(rates, device="cpu"):
     return model, params, images, labels, mask
 
 
+def kernel_step(params, images, spec):
+    return KernelStep(params, images, torch.float32,
+                      learning_rate=spec.learning_rate,
+                      momentum=spec.momentum, clip_norm=spec.clip_norm)
+
+
+def train(step, rates, images, labels, mask):
+    """``step`` in the one loop with the round's draws from a generator
+    seeded 7: (rows, losses, generator)."""
+    gen = torch.Generator().manual_seed(7)
+    rows, losses = train_clients(step, RoundDraws(gen, rates), images,
+                                 labels, mask, local_epochs=EPOCHS,
+                                 batch_size=B)
+    return rows, losses, gen
+
+
 def train_both(rates):
-    """The autograd trainer and the kernel trainer from generators seeded
-    alike: (rows, losses, generator) of each."""
+    """The one loop with the autograd step and with the kernel step, from
+    generators seeded alike: (rows, losses, generator) of each."""
     model, params, images, labels, mask = make_case(rates)
     spec = TrainSpec(learning_rate=LR, local_epochs=EPOCHS, batch_size=B)
-    engine_gen = torch.Generator().manual_seed(7)
-    kernel_gen = torch.Generator().manual_seed(7)
-    rows, losses = make_local_train_fn(model, spec, N)(
-        params, {"image": images, "label": labels}, mask, engine_gen)
-    k_rows, k_losses = kernel_local_train(
-        params, images, labels, mask, kernel_gen, learning_rate=LR,
-        momentum=spec.momentum, clip_norm=spec.clip_norm,
-        local_epochs=EPOCHS, compute_dtype=torch.float32,
-        dropout_rates=rates)
-    return (rows, losses, engine_gen), (k_rows, k_losses, kernel_gen)
+    return (train(AutogradStep(model, spec, params, C), rates, images,
+                  labels, mask),
+            train(kernel_step(params, images, spec), rates, images, labels,
+                  mask))
 
 
 @pytest.mark.parametrize("rates", [(0.25, 0.5), (0.0, 0.0)])
@@ -95,12 +108,11 @@ def test_kernel_trainer_draws_as_the_engine(rates):
 
 def test_kernel_trainer_spans_each_step():
     model, params, images, labels, mask = make_case((0.25, 0.5))
+    spec = TrainSpec(learning_rate=LR, local_epochs=EPOCHS, batch_size=B)
     tracing.clear()
     with profile(activities=[ProfilerActivity.CPU]):
-        kernel_local_train(params, images, labels, mask,
-                           torch.Generator().manual_seed(7),
-                           learning_rate=LR, local_epochs=EPOCHS,
-                           compute_dtype=torch.float32)
+        train(kernel_step(params, images, spec), model.dropout_rates, images,
+              labels, mask)
     names = [s.name for s in tracing.spans()]
     tracing.clear()
     assert names == ["forward", "backward", "optimizer"] * (EPOCHS * STEPS)
@@ -138,18 +150,17 @@ def test_kernel_trainer_rule(case, spec, images, admitted):
     spec = TrainSpec(**{"learning_rate": LR, "local_epochs": EPOCHS,
                         "batch_size": B, **spec})
     if images is not None:
-        assert kernel_trainer_takes(model, spec, images) is admitted
+        assert kernel_step_takes(model, spec, images) is admitted
         return
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    # The engine's trainer on the card: one kernel-trainer call, 16
-    # launches a step, the step's three spans each step.
+    # The engine's trainer on the card: the kernel step's 16 launches a
+    # step, the step's three spans each step.
     model, params, images, labels, mask = make_case((0.25, 0.5), "cuda")
-    assert kernel_trainer_takes(model, spec, images)
+    assert kernel_step_takes(model, spec, images)
     local_train = make_local_train_fn(model, spec, N)
     for fn in DRAWN_DROPOUT_STEP_KERNELS:
         fn.launches = 0
-    calls = kernel_local_train.calls
     gen = torch.Generator("cuda").manual_seed(7)
     tracing.clear()
     with profile(activities=[ProfilerActivity.CUDA]):
@@ -158,7 +169,6 @@ def test_kernel_trainer_rule(case, spec, images, admitted):
     names = [s.name for s in tracing.spans()]
     tracing.clear()
     steps = EPOCHS * STEPS
-    assert kernel_local_train.calls == calls + 1
     launches = {fn.__name__: fn.launches for fn in DRAWN_DROPOUT_STEP_KERNELS}
     assert launches == {fn.__name__: k * steps
                         for fn, k in DRAWN_DROPOUT_STEP_KERNELS.items()}
@@ -188,7 +198,7 @@ def test_f32_round_runs_stem_wgrad_tf32():
     mask[:, 600:] = 0.0
     spec = TrainSpec(learning_rate=LR, local_epochs=EPOCHS, batch_size=B)
     assert model.dtype == torch.float32
-    assert kernel_trainer_takes(model, spec, images)
+    assert kernel_step_takes(model, spec, images)
     reset_kernel_launches()
     wgrad_before = conv_wgrad.launches
     rows, _ = make_local_train_fn(model, spec, n)(

@@ -27,6 +27,7 @@ from multimodal_fl_security_tpu_torch.models.from_jax import (
     flat_from_jax,
     params_from_jax,
 )
+from multimodal_fl_security_tpu_torch.ops.client_dropout import RoundDraws
 from multimodal_fl_security_tpu_torch.rounds.engine import cross_entropy
 from multimodal_fl_security_tpu_torch.utils.metrics import evaluate_model
 
@@ -181,11 +182,11 @@ def test_dropout_draws_from_the_generator():
     model = create_model("simple_cnn", num_classes=10)
     params = init_model(model, in_channels=1, seed=0, device="cpu")
     x = torch.randn(4, 1, HW, HW, generator=torch.Generator().manual_seed(1))
-    runs = [model(params, x, train=True,
-                  generator=torch.Generator().manual_seed(s))
+    runs = [model(params, x, RoundDraws(torch.Generator().manual_seed(s),
+                                        model.dropout_rates))
             for s in (7, 7, 8)]
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
     with pytest.raises(ValueError, match="Generator"):
-        model(params, x, train=True)
+        RoundDraws(None, model.dropout_rates)
     assert torch.equal(model(params, x), model(params, x))  # eval: no dropout

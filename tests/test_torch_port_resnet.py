@@ -50,11 +50,14 @@ from multimodal_fl_security_tpu_torch.models.from_jax import (
     jax_paths,
     params_from_jax,
 )
+from multimodal_fl_security_tpu_torch.ops.client_dropout import RoundDraws
+from multimodal_fl_security_tpu_torch.ops.fused_kernel import (
+    kernel_step_takes,
+)
 from multimodal_fl_security_tpu_torch.rounds.engine import (
     RoundEngine,
     TrainSpec,
     cross_entropy,
-    kernel_trainer_takes,
     sgd_step,
 )
 from multimodal_fl_security_tpu_torch.utils import tracing
@@ -209,8 +212,9 @@ def stem_gaps(case):
 
 
 def port_loss(case, params):
-    logits = case["model"](params, nchw(case["images"]), train=True,
-                           generator=torch.Generator().manual_seed(7))
+    logits = case["model"](params, nchw(case["images"]),
+                           RoundDraws(torch.Generator().manual_seed(7),
+                                      (RATE,)))
     return logits, cross_entropy(logits, torch.from_numpy(case["labels"]),
                                  torch.from_numpy(case["mask"]))
 
@@ -318,7 +322,7 @@ def test_a_round_equals_the_plain_reference_round():
 def test_the_kernel_trainer_does_not_take_resnet():
     spec = TrainSpec(batch_size=32)
     images = torch.zeros((2, 32, 1, 28, 28))
-    assert not kernel_trainer_takes(small_model(), spec, images)
+    assert not kernel_step_takes(small_model(), spec, images)
 
 
 def test_a_weight_decay_step_equals_the_reference_sgd():
