@@ -15,8 +15,9 @@ paths and fails loudly on anything wrong. Phases, in order:
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
    the bf16 forward, the conv gradients and fc1's forward and backward, and
    the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
-   ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``, ``stem_wgrad_tf32`` (sparse
-   mma), ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and ``dense_bwd_tf32``).
+   ``conv2_fwd_tf32``, ``conv2_wgrad_tf32`` and ``stem_wgrad_tf32`` (both
+   sparse mma), ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
+   ``dense_bwd_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
    scaling attack), at ragged shapes and at [100, 8,000,000]. Requires

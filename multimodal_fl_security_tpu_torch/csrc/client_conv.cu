@@ -431,52 +431,131 @@ conv2_wgrad_tc_kernel(MftView x, MftView dp, MftView h, MftView arg,
 
 // ------------------------------------------- conv2's weight gradient, f32
 //
-// conv2_wgrad_tf32: conv2_wgrad_tc's GEMM in f32, on mma.sync.m16n8k8 in
-// 3xTF32 (each operand split into hi = tf32(a) and lo = tf32(a - hi),
-// rounded to nearest even, once as it is staged; lo hi + hi lo + hi hi in
-// f32 sums). One block per (kh, client), as conv2_wgrad_tc; 8 warps, warp w
-// the output channels 16 (w % 4) + [0, 16) and columns (kw, ci) 48 (w / 4)
-// + [0, 48). What changes with 32-bit operands:
-//  - ldmatrix.trans moves 16-bit elements only. ldmatrix without .trans
-//    gives lane l word l % 4 of row l / 4 of an 8 x 16-byte matrix, which is
-//    the TF32 A fragment's (row, k) for a [row][k] tile and the B
-//    fragment's (n, k) for a [n][k] tile. A = dZ^T is staged [co][m] and
-//    read by ldmatrix; B's k (the position m) is not contiguous in the
-//    NHWC input, so the input is staged transposed, [ci][halo pixel], and
-//    B's two words a lane are read as scalars (the shift by kw breaks
-//    ldmatrix's 16-byte row alignment).
-//  - m is the position on the halo's 16-wide rows, m = oy * 16 + ox (224 of
-//    them; ox = 14, 15 hold dZ = 0): the input under m shifted by (kh, kw)
-//    is halo pixel m + 16 kh + kw, so four consecutive k are four
-//    consecutive words of a [ci] row.
-//  - Rows are padded to 4 (mod 32) words: the scalar B loads (lanes: 8
-//    channels x 4 positions) and ldmatrix's eight row addresses fall on
-//    distinct banks. Shared memory: the input's hi and lo (2 x 33 KB) and
-//    dZ's (2 x 57 KB), 179 KB: one block an SM.
-//  - The tensor cores' f32 sums do not round to nearest (gram.cu): every 4
-//    k8 steps (12 mma) start a fresh accumulator, added in f32. A block sums
-//    its client's 32 x 224 positions in one order, with no atomics: two
+// conv2_wgrad_tf32: conv2's dW[co, ci, kh, kw] and db[co] in f32, dW on
+// Hopper's tensor cores in 3xTF32 on sparse mma.sp, as stem_wgrad_tf32. It
+// replaces, in f32, conv2's weight gradient of fused_local_train (K4;
+// multimodal_fl_security_tpu/ops/fused_kernel.py:433, folded by
+// consolidate_cv2, :262): dW[co, (kh, kw, ci)] = sum over the dense rows
+// (n, oy, ox) of dZ[row, co] X[(oy + kh - 1, ox + kw - 1), ci], and db[co]
+// the sum of dZ[row, co]. Per client M = 64, N = 288, K = B x 196.
+//  - dZ is sparse in a fixed pattern. With a sample's rows in window order
+//    (row 4 p + q: position q = 2 di + dj of pooled window p), a window's
+//    four rows hold its gradient at the argmax's q alone, so each pair of
+//    rows (q = 0, 1 and 2, 3) holds at most one nonzero: TF32's 1:2
+//    structured sparsity. A = dZ^T is staged as its nonzero halves
+//    [co][pair] with a 4-bit metadata nibble a pair (0x4 its first row, 0xE
+//    its second), and mma.sp.m16n8k16 takes a k16 step (four windows) at
+//    1.3x the cost of a dense k8 one (mma.sync on an H100 80GB HBM3: 117 G
+//    mma.sp and 153 G dense m16n8k8 TF32 instructions a second). A
+//    sample's 49 windows are 13 steps (windows 49-51 hold dZ = 0).
+//  - B = the input under each row, shifted by the tap: lane (g, t) of an n8
+//    tile holds rows t, t + 4, t + 8, t + 12 of column g, i.e. position t
+//    of the step's four windows. The sample's input is staged once, split,
+//    as two planes hi and lo [ci][row][col] with its zero border, rows of
+//    18 floats and channels of 292 (4 mod 32): each B element is one load
+//    from each plane straight into the fragment's registers, and a load's
+//    lanes (8 channels x a window's 2 x 2 positions) fall on distinct
+//    banks.
+//  - Warp w: input channels 8 (w % 4) + [0, 8) at the taps (kh = w / 4,
+//    kw = 0..2), 3 n8 tiles, over the four m16 tiles of output channels:
+//    each B fragment serves four tiles and each A fragment three. The
+//    tiles' dependent mma.sp chains are interleaved.
+//  - One block (12 warps) an SM holds the sample's tiles (the input's hi
+//    and lo, 2 x 37 KB; dZ's halves, 2 x 27 KB) and a buffer (52 KB) that
+//    receives the next sample's input, dp, h and argmax as they are
+//    (cp.async) while the tensor cores run: a sample costs two barriers
+//    and its staging, by all threads.
+//  - db on the CUDA cores, as the windows are routed: thread t sums channel
+//    t / 6's windows t % 6 + 6 j over its rank's samples, and the six
+//    classes of a channel are then added in order.
+//  - A cluster of kWgCluster blocks splits a client's samples; then rank r
+//    adds output channels kWgOutCo r + [0, kWgOutCo) of the ranks' sums
+//    through distributed shared memory, in rank order, and writes them in
+//    dW's own order.
+//  - Every operand is split into hi = tf32(a) and lo = tf32(a - hi)
+//    (mft_tf32_rne) once, as it is staged; lo hi + hi lo + hi hi. A fresh
+//    accumulator takes each kWgChunk steps (12 mma.sp a tile) and is added
+//    to the block's sums in f32, chunks and samples in order: the tensor
+//    cores' sums do not round to nearest, and a fresh one bounds their
+//    truncation. Every sum runs in a fixed order, with no atomics: two
 //    calls are bitwise equal.
-// What bounds it: the routed work is 5.78 GFLOP (0.035 ms in 3xTF32)
-// against 178 MB of operands (0.053 ms): bytes. The dense GEMM over the
-// 224 positions is 4.6x the routed work, and each k8 step of a warp reads
-// its fragments with 2 ldmatrix and 24 scalar loads for 18 mma: shared
-// memory bounds the design.
+// What bounds it: 178 MB of operands on the main path (the input, dp and h
+// f32, the argmax bytes; 100 clients x 32 samples): 0.053 ms at 3.35 TB/s;
+// the routed work is 5.78 GFLOP (0.035 ms in 3xTF32). The design's floor
+// is the tensor cores': 18.3 M mma.sp at 117 G a second, 0.156 ms, and
+// ~0.19 ms at the rate its step loop reaches alone (~94 G a second). What
+// it leaves: the staging between the barriers (a quarter of a block's
+// time; splitting the warps so that one half stages while the other runs
+// its steps, into a second tile, measured slower), and 7 waves of 16
+// clusters for 100 clients (28 samples a block slot, 25 on average).
 
-constexpr int kTfXRow = kHaloPix + 4;      // 260 floats: [ci][halo pixel]
-constexpr int kTfZPos = kC2Hw * kHaloW;    // 224 positions m = oy * 16 + ox
-constexpr int kTfZRow = kTfZPos + 4;       // 228 floats: [co][m]
-constexpr int kTfPromote = 4;              // k8 steps a fresh accumulator takes
-constexpr size_t kTfWgradSmem =
-    sizeof(float) * 2 * (kC2In * kTfXRow + kC2Out * kTfZRow);
+constexpr int kWgThreads = 384;  // 12 warps
+constexpr int kWgCluster = 8;    // blocks splitting a client
+constexpr int kWgSteps = 13;     // k16 steps a sample: windows 0-51
+constexpr int kWgChunk = 4;      // k16 steps a fresh accumulator takes
+constexpr int kWgXRow = kHaloW + 2;            // 18 floats a row
+constexpr int kWgXCi = kHaloW * kWgXRow + 4;   // 292 floats a channel
+constexpr int kWgZRow = 8 * kWgSteps + 4;      // 108 floats: [co][pair]
+constexpr int kWgMetaStep = 4 * 16 + 2;        // metadata words a step
+constexpr int kWgTaps = 9 * kC2In;             // 288 columns (tap, ci)
+constexpr int kWgRedRow = kWgTaps + 8;         // 296 floats: [co][tap][ci]
+constexpr int kWgOutCo = kC2Out / kWgCluster;  // 8 channels a rank writes
+constexpr int kWgOutRow = kWgTaps + 1;         // 289 floats: [co][ci][tap]
+constexpr int kWgXChunks = kC2Pos * kC2In / 4;  // 1568 16-byte chunks
+constexpr int kWgZChunks = kC2Wins / 4;         // 784
+constexpr int kWgDbClasses = kWgThreads / kC2Out;  // of a channel's windows
+constexpr size_t kWgXBytes = sizeof(float) * kC2In * kWgXCi;
+constexpr size_t kWgZBytes = sizeof(float) * kC2Out * kWgZRow;
+constexpr size_t kWgTiles = 2 * kWgXBytes + 2 * kWgZBytes;
+constexpr size_t kWgMetaBytes =  // whole 16-byte chunks
+    (sizeof(uint32_t) * kWgSteps * kWgMetaStep + 15) / 16 * 16;
+// The next sample as it is: x [pixel][ci], dp and h [co][window] f32, the
+// argmax [co][window] bytes.
+constexpr size_t kWgRawX = sizeof(float) * kC2Pos * kC2In;
+constexpr size_t kWgRawZ = sizeof(float) * kC2Wins;
+constexpr size_t kWgRaw = kWgRawX + 2 * kWgRawZ + kC2Wins;
+constexpr size_t kWgSmem = kWgTiles + kWgMetaBytes + kWgRaw;
+// Laid over the tiles once the steps are done: the block's sums [co][tap]
+// [ci], its db partials [class][co] and db [co], and the rank's outputs.
+constexpr size_t kWgSums =
+    sizeof(float) * (kC2Out * kWgRedRow + (kWgDbClasses + 1) * kC2Out +
+                     kWgOutCo * kWgOutRow);
 
-static_assert(kTfZPos / 8 % kTfPromote == 0, "whole chunks of k8 steps");
-static_assert(kTfWgradSmem <= kMftMaxSmem, "one block an SM");
+static_assert(kWgXCi % 32 == 4 && kWgXRow % 4 == 2 &&
+                  kWgThreads % kC2Out == 0,
+              "a B load's lanes on distinct banks; whole classes a channel");
+static_assert(kWgZRow % 8 == 4 && kWgRedRow % 32 == 8,
+              "ldmatrix rows and the sums' stores on distinct banks");
+static_assert(4 * kWgSteps >= kC2Pooled && kWgSums <= kWgTiles,
+              "13 steps a sample; the sums lie over the tiles");
+static_assert((kWgTiles + kWgMetaBytes) % 16 == 0 && kWgRawX % 16 == 0 &&
+                  kWgRawZ % 16 == 0 && kWgSmem <= kMftMaxSmem,
+              "16-byte aligned copies; one block an SM");
 
 // Element e of a float4 (e known at compile time once the loops are
 // unrolled).
 __device__ __forceinline__ float mft_f4_at(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// d += a (16 x 16 with at most one nonzero in each pair of columns, given as
+// its 16 x 8 nonzero half; row-major) * b (16 x 8, column-major): tf32 in,
+// f32 sums. e: the pairs' metadata, from lanes 4 g and 4 g + 1 (selector
+// 0): lane 4 g's nibbles 0-3 for row g and 4-7 for row g + 8 over the
+// compressed columns 0-3, lane 4 g + 1's over columns 4-7; a nibble is 0x4
+// for a pair's first element, 0xE for its second. The b fragment: lane
+// (g, t) holds rows t, t + 4, t + 8, t + 12 of column g.
+__device__ __forceinline__ void mma_sp16816_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[4],
+                                                 uint32_t e) {
+  asm volatile(
+      "mma.sp.sync.aligned.m16n8k16.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9, %10, %11}, "
+      "{%0, %1, %2, %3}, %12, 0x0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "r"(b[2]), "r"(b[3]), "r"(e));
 }
 
 // conv2's pooled gradient, pooled output and argmax of one sample in f32,
@@ -529,192 +608,298 @@ struct C2WindowsF32 {
   }
 };
 
-// conv2's input of one sample, split, into the transposed zero-bordered
-// tiles xh, xl [ci][halo pixel]. Dense: an NHWC f32 slab [14][14][32],
-// 16-byte aligned, as the stem's f32 forward writes it; seven 16-byte
-// loads a thread, issued together. Otherwise: any strides and types, one
-// element at a time.
-template <bool kDense>
-struct C2InputF32;
-
-template <>
-struct C2InputF32<true> {
-  static constexpr int kChunks = kC2Pos * kC2In / 4;  // 1568
-  static constexpr int kLoads = (kChunks + kTcThreads - 1) / kTcThreads;
-  float4 v[kLoads];
-
-  __device__ __forceinline__ void load(const MftView& x, int c, int n) {
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int i = threadIdx.x + k * kTcThreads;
-      if (i < kChunks) {
-        v[k] = *reinterpret_cast<const float4*>(mft_slab<float>(x, c, n) +
-                                                4 * i);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* xh, float* xl) const {
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int i = threadIdx.x + k * kTcThreads;
-      if (i < kChunks) {
-        const int p = i / 8, ci = 4 * (i % 8);  // 8 chunks a pixel
-        const int at = ci * kTfXRow + (p / kC2Hw + 1) * kHaloW + p % kC2Hw + 1;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float a = mft_f4_at(v[k], e);
-          const float hi = mft_tf32_rne(a);
-          xh[at + e * kTfXRow] = hi;
-          xl[at + e * kTfXRow] = mft_tf32_rne(a - hi);
-        }
-      }
-    }
-  }
-};
-
-template <>
-struct C2InputF32<false> {
-  const MftView* x_;
-  int c_, n_;
-
-  __device__ __forceinline__ void load(const MftView& x, int c, int n) {
-    x_ = &x, c_ = c, n_ = n;
-  }
-
-  __device__ __forceinline__ void store(float* xh, float* xl) const {
-    for (int i = threadIdx.x; i < kC2Pos * kC2In; i += kTcThreads) {
-      const int p = i % kC2Pos, ci = i / kC2Pos;
-      const int iy = p / kC2Hw, ix = p % kC2Hw;
-      const float a = mft_ld(*x_, mft_off(*x_, c_, n_, ci, iy, ix));
-      const float hi = mft_tf32_rne(a);
-      const int at = ci * kTfXRow + (iy + 1) * kHaloW + ix + 1;
-      xh[at] = hi;
-      xl[at] = mft_tf32_rne(a - hi);
-    }
-  }
-};
-
-// One block per (kh, client): dW[co, ci, kh, kw] for every co, kw and ci,
-// and db (written by the kh = 0 block). While the tensor cores run on
-// sample n, sample n + 1's loads are in flight.
+// Grid (client, rank); rank r sums samples [r B / kWgCluster, (r + 1) B /
+// kWgCluster) of its client. kDenseX: the input is an NHWC f32 slab
+// [14][14][32], 16-byte aligned, as the stem's f32 forward writes it;
+// kDenseZ: dp, h and the argmax are NCHW slabs (dp, h f32, arg bytes),
+// 16-byte aligned, as fc1's f32 backward and conv2's f32 forward write
+// them. Those are copied whole into the buffer by cp.async, a sample ahead;
+// other strides and types are read one element at a time as the sample is
+// staged.
 template <bool kDenseX, bool kDenseZ>
-__global__ void __launch_bounds__(kTcThreads, 1)
+__global__ void __cluster_dims__(1, kWgCluster, 1)
+    __launch_bounds__(kWgThreads, 1)
 conv2_wgrad_tf32_kernel(MftView x, MftView dp, MftView h, MftView arg,
                         MftView gw, MftView gb, int batch) {
-  using Windows =
-      typename std::conditional<kDenseZ, C2WindowsF32<kC2Wins>,
-                                C2Windows<false>>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xh = reinterpret_cast<float*>(smem_raw);  // [ci][halo pixel]
-  float* xl = xh + kC2In * kTfXRow;
-  float* zh = xl + kC2In * kTfXRow;  // [co][m], m = oy * 16 + ox
-  float* zl = zh + kC2Out * kTfZRow;
-  const int kh = blockIdx.x;
-  const int c = blockIdx.y;
+  float* xh = reinterpret_cast<float*>(smem_raw);  // [ci][row][col]
+  float* xl = xh + kC2In * kWgXCi;
+  float* zh = xl + kC2In * kWgXCi;  // [co][pair]
+  float* zl = zh + kC2Out * kWgZRow;
+  unsigned char* meta_b = smem_raw + kWgTiles;
+  const uint32_t* meta = reinterpret_cast<const uint32_t*>(meta_b);
+  unsigned char* raw = meta_b + kWgMetaBytes;
+  const float* raw_x = reinterpret_cast<const float*>(raw);
+  const float* raw_dp = reinterpret_cast<const float*>(raw + kWgRawX);
+  const float* raw_h = raw_dp + kC2Wins;
+  const unsigned char* raw_arg = raw + kWgRawX + 2 * kWgRawZ;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
-  const int gq = lane >> 2, tq = lane & 3;  // the fragments' row, column
-  const int co0 = (warp & 3) * 16;
-  const int j0 = (warp >> 2) * 48;
-  {
-    float* z = xh;
-    const int words = static_cast<int>(kTfWgradSmem / sizeof(float));
-    for (int i = t; i < words; i += kTcThreads) z[i] = 0.f;  // borders, pads
+  const int li = lane >> 3, lr = lane & 7;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int kh = warp / 4, ci0 = 8 * (warp % 4);
+  const int n0 = static_cast<int>(static_cast<long long>(rank) * batch /
+                                  kWgCluster);
+  const int n1 = static_cast<int>(static_cast<long long>(rank + 1) * batch /
+                                  kWgCluster);
+  // The input's border (never written again), windows 49-51 (dZ = 0) and
+  // every metadata nibble a first element's.
+  for (int i = t; i < 2 * kC2In * kWgXCi; i += kWgThreads) xh[i] = 0.f;
+  for (int i = t; i < kC2Out * 6; i += kWgThreads) {
+    const int at = i / 6 * kWgZRow + 2 * kC2Pooled + i % 6;
+    zh[at] = 0.f;
+    zl[at] = 0.f;
   }
-  // A (ldmatrix x4): matrix li is rows co0 + 8 (li & 1) + [0, 8), k
-  // 4 (li >> 1) + [0, 4): a0 .. a3 of the m16n8k8 TF32 fragment.
+  for (int i = t; i < kWgSteps * kWgMetaStep; i += kWgThreads) {
+    reinterpret_cast<uint32_t*>(meta_b)[i] = 0x44444444u;
+  }
+  float db = 0.f;  // channel t / 6's windows t % 6 + 6 j over the samples
+  // Sample n's dense operands into the buffer, as they are.
+  const uint32_t raw_addr = mft_smem_addr(raw);
+  auto fetch = [&](int n) {
+    if constexpr (kDenseX) {
+      const float* xn = mft_slab<float>(x, c, n);
+      for (int i = t; i < kWgXChunks; i += kWgThreads) {
+        mft_cp_async16(raw_addr + 16 * i, xn + 4 * i, 16);
+      }
+    }
+    if constexpr (kDenseZ) {
+      const float* dn = mft_slab<float>(dp, c, n);
+      const float* hn = mft_slab<float>(h, c, n);
+      const uint8_t* an = mft_slab<uint8_t>(arg, c, n);
+      for (int i = t; i < 2 * kWgZChunks + kC2Wins / 16; i += kWgThreads) {
+        const void* src =
+            i < kWgZChunks ? static_cast<const void*>(dn + 4 * i)
+            : i < 2 * kWgZChunks
+                ? static_cast<const void*>(hn + 4 * (i - kWgZChunks))
+                : static_cast<const void*>(an + 16 * (i - 2 * kWgZChunks));
+        mft_cp_async16(raw_addr + kWgRawX + 16 * i, src, 16);
+      }
+    }
+    mft_cp_async_commit();
+  };
+  // Window (co, p) of the sample, its gradient g at position q: pair 2 p
+  // (q = 0, 1) or 2 p + 1 (q = 2, 3) of row co holds g, the other 0; the
+  // metadata byte of the window's two pairs lies in word (step p / 4, m16
+  // tile co / 16, row co % 8, half (p % 4) / 2), half-word (co % 16) / 8.
+  auto put = [&](int co, int p, int q, float g) {
+    const float gh = mft_tf32_rne(g), gl = mft_tf32_rne(g - gh);
+    const bool top = q < 2;
+    const int at = co * kWgZRow + 2 * p;
+    *reinterpret_cast<float2*>(zh + at) =
+        make_float2(top ? gh : 0.f, top ? 0.f : gh);
+    *reinterpret_cast<float2*>(zl + at) =
+        make_float2(top ? gl : 0.f, top ? 0.f : gl);
+    meta_b[((p / 4) * kWgMetaStep + co / 16 * 16 + co % 8 * 2 + p % 4 / 2) *
+               4 +
+           co % 16 / 8 * 2 + p % 2] =
+        static_cast<unsigned char>((q == 1 ? 0xEu : 0x4u) |
+                                   (q == 3 ? 0xE0u : 0x40u));
+  };
+  // Sample n into the tiles: its input split into xh and xl's interior,
+  // and its windows routed (the gradient through the relu, h > 0) into zh,
+  // zl and the metadata. The input: thread t takes 16-byte chunks t + 384
+  // k, their four elements in the turned order e + cg4 / 2 (mod 4), so that
+  // one turn's stores of a warp fall on distinct banks.
+  auto stage = [&](int n) {
+    if constexpr (kDenseX) {
+#pragma unroll 1
+      for (int i = t; i < kWgXChunks; i += kWgThreads) {
+        const float4 v = reinterpret_cast<const float4*>(raw_x)[i];
+        const int px = i / 8, cg4 = i % 8;  // pixel, channels 4 cg4 + [0, 4)
+        const int at = 4 * cg4 * kWgXCi + (px / kC2Hw + 1) * kWgXRow +
+                       px % kC2Hw + 1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = (e + cg4 / 2) & 3;
+          const float a = f == 0 ? v.x : f == 1 ? v.y : f == 2 ? v.z : v.w;
+          const float hi = mft_tf32_rne(a);
+          xh[at + f * kWgXCi] = hi;
+          xl[at + f * kWgXCi] = mft_tf32_rne(a - hi);
+        }
+      }
+    } else {
+      for (int i = t; i < kC2In * kC2Pos; i += kWgThreads) {
+        const int ci = i / kC2Pos, px = i % kC2Pos;
+        const int y = px / kC2Hw, xx = px % kC2Hw;
+        const float a = mft_ld(x, mft_off(x, c, n, ci, y, xx));
+        const float hi = mft_tf32_rne(a);
+        const int at = ci * kWgXCi + (y + 1) * kWgXRow + xx + 1;
+        xh[at] = hi;
+        xl[at] = mft_tf32_rne(a - hi);
+      }
+    }
+    // Thread t: channel co = t / 6, windows t % 6 + 6 j (a warp's stores of
+    // one turn on distinct banks); db its sum of them.
+    const int co = t / kWgDbClasses;
+#pragma unroll 3
+    for (int p = t % kWgDbClasses; p < kC2Pooled; p += kWgDbClasses) {
+      float g;
+      int q;
+      if constexpr (kDenseZ) {
+        const int w = co * kC2Pooled + p;
+        g = raw_h[w] > 0.f ? raw_dp[w] : 0.f;
+        q = raw_arg[w];
+      } else {
+        const int oi = p / kC2Pw, oj = p % kC2Pw;
+        g = mft_ld(h, mft_off(h, c, n, co, oi, oj)) > 0.f
+                ? mft_ld(dp, mft_off(dp, c, n, co, oi, oj))
+                : 0.f;
+        q = static_cast<int>(mft_ld(arg, mft_off(arg, c, n, co, oi, oj)));
+      }
+      db += g;
+      put(co, p, q, g);
+    }
+  };
+
+  // ldmatrix: A (dZ^T's halves) matrix li is channels 8 (li & 1) + [0, 8)
+  // of an m16 tile, pairs 4 (li >> 1) + [0, 4) of a step: a0 .. a3.
   const uint32_t a_off = static_cast<uint32_t>(
-      ((co0 + (li & 1) * 8 + lr) * kTfZRow + (li >> 1) * 4) * sizeof(float));
+      ((8 * (li & 1) + lr) * kWgZRow + 4 * (li >> 1)) * sizeof(float));
   const uint32_t zh_addr = mft_smem_addr(zh) + a_off;
   const uint32_t zl_addr = mft_smem_addr(zl) + a_off;
-  // B: column jj = j0 + 8 u + gq, (kw, ci) = (jj / 32, jj % 32), k = m
-  // = tq (b0) and tq + 4 (b1) of each k8 step: halo pixel m + 16 kh + kw.
-  int b_off[6];
-#pragma unroll
-  for (int u = 0; u < 6; ++u) {
-    const int jj = j0 + 8 * u + gq;
-    b_off[u] = (jj % kC2In) * kTfXRow + kh * kHaloW + jj / kC2In + tq;
-  }
-  C2InputF32<kDenseX> xr;
-  Windows wr;
-  float acc[6][4] = {};
-  float db[Windows::kSlots] = {};  // each slot's sum over samples
-  xr.load(x, c, 0);
-  wr.load(dp, h, arg, c, 0);
-  for (int n = 0; n < batch; ++n) {
-    __syncthreads();  // the zero fill, or the previous sample's reads, done
-    xr.store(xh, xl);
-    // Window (co, p): positions (di, dj) = (0, 0), (0, 1) are adjacent in
-    // m, and (1, 0), (1, 1) one halo row (16) on: two 8-byte stores each
-    // for hi and lo.
-    wr.route([&](int slot, int co, int p, int q, float g) {
-      db[slot] += g;
-      const float gh = mft_tf32_rne(g), gl = mft_tf32_rne(g - gh);
-      const int m = 2 * (p / kC2Pw) * kHaloW + 2 * (p % kC2Pw);
-      float2* rh = reinterpret_cast<float2*>(zh + co * kTfZRow + m);
-      float2* rl = reinterpret_cast<float2*>(zl + co * kTfZRow + m);
-      rh[0] = make_float2(q == 0 ? gh : 0.f, q == 1 ? gh : 0.f);
-      rh[kHaloW / 2] = make_float2(q == 2 ? gh : 0.f, q == 3 ? gh : 0.f);
-      rl[0] = make_float2(q == 0 ? gl : 0.f, q == 1 ? gl : 0.f);
-      rl[kHaloW / 2] = make_float2(q == 2 ? gl : 0.f, q == 3 ? gl : 0.f);
-    });
+  constexpr uint32_t kZTile16 = 16 * kWgZRow * sizeof(float);
+  // This lane's metadata word of a step and m16 tile (lanes 4 g + 2 and
+  // 4 g + 3 read one that the instruction ignores).
+  const uint32_t* meta_at = meta + gq * 2 + (tq & 1);
+  // B: this lane's column (input channel ci0 + gq) and position tq of a
+  // window whose top-left output pixel is (0, 0), at tap (kh, 0); n8 tile
+  // u is kw = u.
+  const int xb = (ci0 + gq) * kWgXCi + (tq / 2 + kh) * kWgXRow + tq % 2;
+  // The block's sums and the current chunk's: [m16 tile][n8 tile (kw)]
+  // [fragment].
+  float acc[4][3][4] = {}, chunk[4][3][4];
+
+  if (n0 < n1) fetch(n0);
+  for (int n = n0; n < n1; ++n) {
+    mft_cp_async_wait<0>();  // this thread's copies of sample n
+    __syncthreads();  // every copy landed; the previous steps are done
+    stage(n);
     __syncthreads();
-    if (n + 1 < batch) {
-      xr.load(x, c, n + 1);
-      wr.load(dp, h, arg, c, n + 1);
-    }
-    for (int s0 = 0; s0 < kTfZPos / 8; s0 += kTfPromote) {
-      float part[6][4] = {};
+    if (n + 1 < n1) fetch(n + 1);  // the buffer is read: the next sample
+    for (int s = 0; s < kWgSteps; ++s) {
+      uint32_t ahi[4][4], alo[4][4], e[4];
 #pragma unroll
-      for (int ds = 0; ds < kTfPromote; ++ds) {
-        const int s = s0 + ds;
-        uint32_t ahi[4], alo[4];
-        ldsm4(ahi, zh_addr + s * 8 * sizeof(float));
-        ldsm4(alo, zl_addr + s * 8 * sizeof(float));
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t o = m * kZTile16 + s * 8 * sizeof(float);
+        ldsm4(ahi[m], zh_addr + o);
+        ldsm4(alo[m], zl_addr + o);
+        e[m] = meta_at[s * kWgMetaStep + m * 16];
+      }
+      int wo[4];  // each window's top-left pixel in the tile, from xb
 #pragma unroll
-        for (int u = 0; u < 6; ++u) {
-          const float* bh = xh + b_off[u] + 8 * s;
-          const float* bl = xl + b_off[u] + 8 * s;
-          const uint32_t bh0 = __float_as_uint(bh[0]);
-          const uint32_t bh1 = __float_as_uint(bh[4]);
-          mma1688_tf32(part[u], alo, bh0, bh1);  // the small terms first
-          mma1688_tf32(part[u], ahi, __float_as_uint(bl[0]),
-                       __float_as_uint(bl[4]));
-          mma1688_tf32(part[u], ahi, bh0, bh1);
+      for (int v = 0; v < 4; ++v) {
+        const int p = min(4 * s + v, kC2Pooled - 1);  // past 48: dZ = 0
+        const int oi = (p * 37) >> 8;                 // p / 7 for p < 52
+        wo[v] = 2 * oi * kWgXRow + 2 * (p - kC2Pw * oi);
+      }
+      if (s % kWgChunk == 0) {  // a fresh accumulator
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) chunk[m][u][q] = 0.f;
+          }
         }
       }
 #pragma unroll
-      for (int u = 0; u < 6; ++u) {
+      for (int u = 0; u < 3; ++u) {
+        uint32_t bh[4], bl[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][e] += part[u][e];
+        for (int v = 0; v < 4; ++v) {
+          bh[v] = __float_as_uint(xh[xb + wo[v] + u]);
+          bl[v] = __float_as_uint(xl[xb + wo[v] + u]);
+        }
+        // The four tiles' chains interleaved: a dependent mma.sp waits out
+        // the previous one's latency, so each issue goes to another tile.
+        // The small terms first.
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          mma_sp16816_tf32(chunk[m][u], alo[m], bh, e[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          mma_sp16816_tf32(chunk[m][u], ahi[m], bl, e[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          mma_sp16816_tf32(chunk[m][u], ahi[m], bh, e[m]);
+        }
+      }
+      if (s % kWgChunk == kWgChunk - 1 || s == kWgSteps - 1) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[m][u][q] += chunk[m][u][q];
+          }
+        }
       }
     }
   }
+
+  __syncthreads();  // the tiles are read: their memory takes the sums
+  float* red = reinterpret_cast<float*>(smem_raw);  // [co][tap][ci]
+  float* dbp = red + kC2Out * kWgRedRow;             // [class][co]
+  float* rdb = dbp + kWgDbClasses * kC2Out;          // [co]
+  float* out = rdb + kC2Out;                         // [co][ci][tap]
 #pragma unroll
-  for (int u = 0; u < 6; ++u) {
+  for (int m = 0; m < 4; ++m) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int co = co0 + gq + (e >> 1) * 8;
-      const int jj = j0 + 8 * u + 2 * tq + (e & 1);
-      mft_st(gw, mft_off(gw, c, co, jj % kC2In, kh, jj / kC2In), acc[u][e]);
+    for (int u = 0; u < 3; ++u) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int co = 16 * m + gq + 8 * r;
+        const int j = (3 * kh + u) * kC2In + ci0 + 2 * tq;
+        *reinterpret_cast<float2*>(red + co * kWgRedRow + j) =
+            make_float2(acc[m][u][2 * r], acc[m][u][2 * r + 1]);
+      }
     }
   }
-  if (kh != 0) return;
-  __syncthreads();  // the tiles are read: their memory takes the pair sums
-  float* red = xh;  // [co][p]
-#pragma unroll
-  for (int slot = 0; slot < Windows::kSlots; ++slot) {
-    const int i = Windows::pair(slot);
-    if (i < kC2Wins) red[i] = db[slot];
-  }
+  dbp[t % kWgDbClasses * kC2Out + t / kWgDbClasses] = db;
   __syncthreads();
   if (t < kC2Out) {
-    float s = 0.f;
-    for (int p = 0; p < kC2Pooled; ++p) s += red[t * kC2Pooled + p];
-    mft_st(gb, mft_off(gb, c, 0, t, 0, 0), s);
+    float s = dbp[t];
+    for (int g = 1; g < kWgDbClasses; ++g) s += dbp[g * kC2Out + t];
+    rdb[t] = s;
   }
+  cluster.sync();  // every rank's sums are in its shared memory
+  const float* ranks[kWgCluster];
+#pragma unroll
+  for (int r = 0; r < kWgCluster; ++r) {
+    ranks[r] = cluster.map_shared_rank(red, r);
+  }
+  static_assert(kWgOutCo * kWgTaps % kWgThreads == 0, "whole turns");
+#pragma unroll
+  for (int k = 0; k < kWgOutCo * kWgTaps / kWgThreads; ++k) {
+    const int i = t + k * kWgThreads;
+    const int col = i / kWgTaps, j = i % kWgTaps;  // j = tap * 32 + ci
+    const int at = (kWgOutCo * rank + col) * kWgRedRow + j;
+    float s = ranks[0][at];
+#pragma unroll
+    for (int r = 1; r < kWgCluster; ++r) s += ranks[r][at];
+    out[col * kWgOutRow + j % kC2In * 9 + j / kC2In] = s;
+  }
+  if (t < kWgOutCo) {
+    const int co = kWgOutCo * rank + t;
+    float s = cluster.map_shared_rank(rdb, 0)[co];
+    for (int r = 1; r < kWgCluster; ++r) {
+      s += cluster.map_shared_rank(rdb, r)[co];
+    }
+    mft_st(gb, mft_off(gb, c, 0, co, 0, 0), s);
+  }
+  __syncthreads();
+  for (int i = t; i < kWgOutCo * kWgTaps; i += kWgThreads) {
+    const int col = i / kWgTaps, o = i % kWgTaps;  // o = ci * 9 + tap
+    mft_st(gw, mft_off(gw, c, kWgOutCo * rank + col, o / 9, o % 9 / 3, o % 3),
+           out[col * kWgOutRow + o]);
+  }
+  cluster.sync();  // the other ranks have read this one's shared memory
 }
 
 // --------------------------------------------- conv2's input gradient, f32
@@ -1401,26 +1586,6 @@ __device__ __forceinline__ void stf_cp_async8(uint32_t dst, const void* src,
                :
                : "r"(dst), "l"(src), "r"(src_bytes)
                : "memory");
-}
-
-// d += a (16 x 16 with at most one nonzero in each pair of columns, given as
-// its 16 x 8 nonzero half; row-major) * b (16 x 8, column-major): tf32 in,
-// f32 sums. e: the pairs' metadata, from lanes 4 g and 4 g + 1 (selector
-// 0): lane 4 g's nibbles 0-3 for row g and 4-7 for row g + 8 over the
-// compressed columns 0-3, lane 4 g + 1's over columns 4-7; a nibble is 0x4
-// for a pair's first element, 0xE for its second. The b fragment: lane
-// (g, t) holds rows t, t + 4, t + 8, t + 12 of column g.
-__device__ __forceinline__ void mma_sp16816_tf32(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[4],
-                                                 uint32_t e) {
-  asm volatile(
-      "mma.sp.sync.aligned.m16n8k16.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9, %10, %11}, "
-      "{%0, %1, %2, %3}, %12, 0x0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "r"(b[2]), "r"(b[3]), "r"(e));
 }
 
 // Grid (client, rank); rank r sums samples [r B / kStfCluster, (r + 1) B /
@@ -2184,6 +2349,8 @@ stem_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
 // mma, so shared memory (128 B a clock an SM) is about as near its limit
 // as the tensor cores.
 
+constexpr int kTfZPos = kC2Hw * kHaloW;  // 224 positions m = oy * 16 + ox
+constexpr int kTfZRow = kTfZPos + 4;     // 228 floats: [co][m]
 constexpr int kFtHalf = kC2In / 2;      // 16 input channels a pass
 constexpr int kFtXRow = kFtHalf + 4;    // 20 floats: [halo pixel][ci] rows
 constexpr int kFtXPix = kHaloPix + 4;   // m + 16 kh + kw reaches pixel 257
@@ -2945,9 +3112,12 @@ int mft_conv2_wgrad_tf32(const MftView* x, const MftView* dp,
                                : conv2_wgrad_tf32_kernel<true, false>)
                          : (dz ? conv2_wgrad_tf32_kernel<false, true>
                                : conv2_wgrad_tf32_kernel<false, false>);
-  return launch_tc(kernel, dim3(3, a->clients), kTfWgradSmem,
-                   static_cast<cudaStream_t>(stream), g.batch, x, dp, h, arg,
-                   gw, gb);
+  err = mft_smem_optin(kernel, kWgSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a->clients, kWgCluster), kWgThreads, kWgSmem,
+           static_cast<cudaStream_t>(stream)>>>(*x, *dp, *h, *arg, *gw, *gb,
+                                                g.batch);
+  return cudaGetLastError();
 }
 
 // The stem's weight gradient for the compute dtype f32, in 3xTF32: the same

@@ -187,27 +187,69 @@ def test_stem_3xtf32_exact_on_integers():
 
 # ---------------------------------------------------------------- conv2
 
+#: ``conv2_wgrad_tf32_kernel``'s constants (``csrc/client_conv.cu``): the
+#: blocks of a cluster, which split a client's samples; the k16 steps of a
+#: sample (four pooled windows each: 49 windows and 3 of dZ = 0); the steps
+#: a fresh accumulator takes; the classes of a channel's windows (j, j + 6,
+#: ...) that db sums apart
+CONV2_CLUSTER, CONV2_STEPS, CONV2_CHUNK, CONV2_DB_CLASSES = 8, 13, 4, 6
+
+
+def conv2_window_rows(t):
+    """[..., 14, 14] -> [..., 208]: the positions in the kernel's row order,
+    row 4 p + q for position q = 2 di + dj of pooled window p, then the 12
+    rows of windows 49-51 (0)."""
+    lead = t.shape[:-2]
+    rows = t.reshape(lead + (7, 2, 7, 2)).swapaxes(-3, -2).reshape(
+        lead + (196,))
+    return np.concatenate([rows, np.zeros(lead + (12,), rows.dtype)], -1)
+
+
 def conv2_wgrad_3xtf32(x, dp, h, arg):
     """``conv2_wgrad_tf32_kernel``'s arithmetic on conv2's input x [C, B,
     32, 14, 14] and the pooled gradient, map and argmax [C, B, 64, 7, 7]
     (torch tensors): dW[co, (ci, kh, kw)] = sum over (n, position) of
-    dZ[co] x[ci] shifted, in 3xTF32. The kernel's order: per sample, chunks
-    of two output rows (4 k8 steps of its 16-wide rows), each summed afresh
-    and added to the total in f32; db the sum of dZ over positions. Returns
-    (dW [C, 64, 32, 3, 3], db [C, 64]) as numpy f32."""
+    dZ[co] x[ci] shifted, in 3xTF32, and db[co] = sum of dZ[co] in f32. The
+    kernel's order: rank r of a cluster takes samples [r B / 8, (r + 1) B /
+    8); a sample's k16 steps (the sixteen rows of four pooled windows, in
+    window order) are summed in chunks of four, each into a fresh sum that
+    is added to the rank's total in f32, chunks and samples in order. db:
+    class j of a channel's windows (j, j + 6, ...) summed over the rank's
+    samples in order, then the classes in order. Then the ranks' totals are
+    added in rank order. (The kernel sums a chunk on the tensor cores, whose
+    sums do not round to nearest; here each step is one f32 product, added
+    in step order.) Returns (dW [C, 64, 32, 3, 3], db [C, 64]) as numpy
+    f32."""
     c, b = x.shape[:2]
     dz = _dense_dz(dp, h, arg, 14, 14).numpy()  # [C, B, 64, 14, 14]
     cols = F.unfold(x.reshape(c * b, 32, 14, 14).float(), 3, padding=1)
-    cols = cols.numpy().reshape(c, b, 32 * 9, 196)  # k = (ci, kh, kw)
-    zt = dz.reshape(c, b, 64, 196)
-    dw = np.zeros((c, 64, 32 * 9), np.float32)
-    for n in range(b):
-        for m0 in range(0, 196, 28):
-            dw += products_3xtf32(zt[:, n, :, m0:m0 + 28],
-                                  cols[:, n, :, m0:m0 + 28].transpose(0, 2,
-                                                                      1))
-    return dw.reshape(c, 64, 32, 3, 3), dz.sum(axis=(1, 3, 4),
-                                               dtype=np.float32)
+    cols = cols.numpy().reshape(c, b, 32 * 9, 14, 14)  # k = (ci, kh, kw)
+    zt = conv2_window_rows(dz).reshape(c, b, 64, CONV2_STEPS, 16)
+    pt = conv2_window_rows(cols).reshape(c, b, 32 * 9, CONV2_STEPS, 16)
+    g = torch.where(h > 0, dp, torch.zeros(())).numpy().astype(np.float32)
+    g = g.reshape(c, b, 64, 49)
+    dw = db = None
+    for r in range(CONV2_CLUSTER):
+        samples = range(r * b // CONV2_CLUSTER, (r + 1) * b // CONV2_CLUSTER)
+        acc = np.zeros((c, 64, 32 * 9), np.float32)
+        classes = np.zeros((CONV2_DB_CLASSES, c, 64), np.float32)
+        for n in samples:
+            parts = products_3xtf32(zt[:, n].transpose(0, 2, 1, 3),
+                                    pt[:, n].transpose(0, 2, 3, 1))
+            for s0 in range(0, CONV2_STEPS, CONV2_CHUNK):
+                chunk = parts[:, s0]
+                for s in range(s0 + 1, min(s0 + CONV2_CHUNK, CONV2_STEPS)):
+                    chunk = chunk + parts[:, s]
+                acc += chunk
+            for j in range(CONV2_DB_CLASSES):
+                for p in range(j, 49, CONV2_DB_CLASSES):
+                    classes[j] += g[:, n, :, p]
+        acc_db = classes[0]
+        for j in range(1, CONV2_DB_CLASSES):
+            acc_db = acc_db + classes[j]
+        dw = acc if dw is None else dw + acc
+        db = acc_db if db is None else db + acc_db
+    return dw.reshape(c, 64, 32, 3, 3), db
 
 
 def port_step_conv2(case):
@@ -554,11 +596,13 @@ def test_f32_raw_off_k3_geometry_runs_conv_fwd(cuda):
         close(got, want)
 
 
-def conv2_case(gen, c, b, main_layout, ints=False):
+def conv2_case(gen, c, b, main_layout, ints=False, dead=False):
     """conv2's f32 weight-gradient operands: x [C, B, 32, 14, 14] (NHWC in
     the main path's layout, else NCHW), the pooled map and argmax of the
     plain forward (NCHW in the main path's layout, else NHWC) and a pooled
-    gradient of the map's strides; ``ints``: small integers."""
+    gradient of the map's strides; ``ints``: small integers; ``dead``: a
+    bias that puts the whole pooled map below 0, so that the relu passes no
+    gradient (dZ = 0)."""
     def draw(shape, lo, hi, scale):
         if ints:
             return torch.randint(lo, hi, shape, generator=gen,
@@ -570,7 +614,7 @@ def conv2_case(gen, c, b, main_layout, ints=False):
     if not ints:
         x = torch.relu(x)
     w = draw((c, 64, 32, 3, 3), -2, 3, 0.3)
-    bias = draw((c, 64), -2, 3, 0.1)
+    bias = draw((c, 64), -2, 3, 0.1) - (10_000 if dead else 0)
     h, arg = conv_fwd_plain(x, w, bias, channels_last=not main_layout)
     dp = torch.empty_like(h).copy_(draw(h.shape, -4, 5, 0.1))
     return x, w, bias, h, arg, dp
@@ -578,15 +622,23 @@ def conv2_case(gen, c, b, main_layout, ints=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("main_layout", [True, False])
-@pytest.mark.parametrize("c,b", [(3, 5), (100, 32)])
-def test_conv2_wgrad_tf32_matches_f64(cuda, c, b, main_layout):
+@pytest.mark.parametrize("c,b,dead", [
+    pytest.param(3, 5, False, id="3-5"),
+    pytest.param(100, 32, False, id="100-32"),
+    # ragged: the cluster's eight ranks take 0 or 1 samples
+    pytest.param(1, 1, False, id="1-1"),
+    pytest.param(3, 7, False, id="3-7"),
+    # the whole pooled map relu-dead: dW = 0, db = 0
+    pytest.param(3, 5, True, id="3-5-dead")])
+def test_conv2_wgrad_tf32_matches_f64(cuda, c, b, dead, main_layout):
     """f32 conv2 weight gradients run conv2_wgrad_tf32 once a call: within
     the f32 tolerance of the exact (f64) gradient, the error against it at
     most 4x the f32 plain version's, two calls bitwise equal, and on small
     integers bitwise the plain version (without cuDNN). Prints the
     kernel's distance from the f32 plain version, which is not held: at
-    C=100, B=32 the plain version's own error exceeds the tolerance."""
-    x, w, bias, h, arg, dp = conv2_case(cuda, c, b, main_layout)
+    C=100, B=32 the plain version's own error exceeds the tolerance. With
+    the map relu-dead, every output is 0."""
+    x, w, bias, h, arg, dp = conv2_case(cuda, c, b, main_layout, dead=dead)
     grads = [torch.full_like(w, float("nan")), torch.full_like(bias, 0.5)]
     again = [torch.empty_like(w), torch.empty_like(bias)]
     plain = [torch.empty_like(w), torch.empty_like(bias)]
@@ -594,7 +646,8 @@ def test_conv2_wgrad_tf32_matches_f64(cuda, c, b, main_layout):
     conv_wgrad(x, dp, h, arg, *again)
     conv_wgrad_plain(x, dp, h, arg, *plain)
     ref = wgrad_f64(x, dp, h, arg, w.shape)
-    xi, wi, bi, hi, ai, dpi = conv2_case(cuda, c, b, main_layout, ints=True)
+    xi, wi, bi, hi, ai, dpi = conv2_case(cuda, c, b, main_layout, ints=True,
+                                         dead=dead)
     got_i = [torch.empty_like(wi), torch.empty_like(bi)]
     want_i = [torch.empty_like(wi), torch.empty_like(bi)]
     conv_wgrad(xi, dpi, hi, ai, *got_i)
@@ -613,7 +666,11 @@ def test_conv2_wgrad_tf32_matches_f64(cuda, c, b, main_layout):
           f" (tolerance {tol:.3g}); vs f64: kernel {err:.3g}, plain "
           f"{err_plain:.3g}")
     assert err <= F64_FACTOR * err_plain, (err, err_plain)
-    assert float(want_i[0].abs().max()) > 100  # sums large enough to test
+    if dead:
+        assert not (h > 0).any() and not grads[0].any() and \
+            not grads[1].any()
+    else:  # sums large enough to test
+        assert float(want_i[0].abs().max()) > 100
     assert torch.equal(got_i[0], want_i[0]) and torch.equal(got_i[1],
                                                             want_i[1])
 
