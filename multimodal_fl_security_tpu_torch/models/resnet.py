@@ -43,7 +43,7 @@ gradient hooks on the tensors between the stages (registered only then).
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -112,24 +112,6 @@ def _block(h: torch.Tensor, p: Dict[str, torch.Tensor], prefix: str,
         h = _norm(_conv(h, p, prefix + "downsample.0", clients, stride), p,
                   prefix + "downsample.1", clients)
     return F.relu(h + y, inplace=True)
-
-
-def _backward_spans(marks: List[Tuple[torch.Tensor, Optional[str]]],
-                    device: torch.device) -> None:
-    """Gradient hooks that split the backward into spans: when the gradient
-    of a tensor of ``marks`` arrives, the span open ends and the span named
-    beside it (None: none) begins. ``marks`` is in backward order."""
-    state: List[Optional[tracing.Span]] = [None]
-
-    def at(name: Optional[str]):
-        def hook(grad):
-            tracing.TRACER.close(state[0])
-            state[0] = (None if name is None
-                        else tracing.TRACER.open(name, device))
-        return hook
-
-    for tensor, name in marks:
-        tensor.register_hook(at(name))
 
 
 class ResNet(nn.Module):
@@ -252,7 +234,7 @@ class ResNet(nn.Module):
             logits = torch.baddbmm(p["fc.bias"].unsqueeze(1), h,
                                    p["fc.weight"].transpose(1, 2))
         if tracing.enabled() and logits.requires_grad:
-            _backward_spans([(logits, "head.bwd")] + marks, device)
+            tracing.backward_spans([(logits, "head.bwd")] + marks, device)
         return logits[0] if single else logits
 
     def init_params(self, in_channels: int,

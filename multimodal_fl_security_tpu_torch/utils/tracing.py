@@ -31,16 +31,17 @@ The spans, each timing the work where it happens: ``local_train``,
 ``RoundEngine.run_round``, and, inside ``local_train``, ``forward`` (the
 model and the loss; in the kernel trainer also the step's draws and
 gathers), ``backward`` and ``optimizer`` for every local step. A model may
-split its own step further: ResNet's stages (``models/resnet.py``) are
-spans inside ``forward`` and, opened and closed from gradient hooks with
-:meth:`Tracer.open` and :meth:`Tracer.close`, inside ``backward``.
+split its own step further: ResNet's stages (``models/resnet.py``) and
+ViT's sub-blocks (``models/vit.py``) are spans inside ``forward`` and,
+opened and closed from gradient hooks (:func:`backward_spans`), inside
+``backward``.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -183,6 +184,25 @@ class Tracer:
 
 
 TRACER = Tracer()
+
+
+def backward_spans(marks: Sequence[Tuple[torch.Tensor, Optional[str]]],
+                   device: torch.device) -> None:
+    """Gradient hooks that split a backward into spans: when the gradient
+    of a tensor of ``marks`` arrives, the span open ends and the span named
+    beside it (None: none) begins. ``marks`` is in backward order."""
+    state: List[Optional[Span]] = [None]
+
+    def at(name: Optional[str]):
+        def hook(grad):
+            TRACER.close(state[0])
+            state[0] = None if name is None else TRACER.open(name, device)
+        return hook
+
+    for tensor, name in marks:
+        tensor.register_hook(at(name))
+
+
 enabled = _enabled
 span = TRACER.span
 spans = TRACER.spans

@@ -402,6 +402,27 @@ def test_stage_spans_nest_under_forward_and_backward(traced):
                            for a, b in zip(kids, kids[1:]))
 
 
+def test_stage_edges_come_from_the_shared_backward_hooks(traced,
+                                                        monkeypatch):
+    """The backward's stage spans open and close at ``tracing.
+    backward_spans``' hooks, shared with ViT: on each step's logits, each
+    stage's output in backward order, then the stem's weight."""
+    engine, fed, _, _ = traced
+    calls = []
+    shared = tracing.backward_spans
+
+    def recorded(marks, device):
+        calls.append([name for _, name in marks])
+        return shared(marks, device)
+
+    monkeypatch.setattr(tracing, "backward_spans", recorded)
+    traced_rounds(engine, fed, 1, profiled=True)
+    stages = [s + ".bwd" for s in reversed(resnet.STAGES)]
+    assert calls == [stages + [None]] * 2  # two steps a round
+    assert [s.name for s in tracing.spans() if s.name.endswith(".bwd")] == \
+        stages * 2
+
+
 def test_tracing_leaves_the_round_bitwise_unchanged(traced):
     engine, fed, _, _ = traced
     off = traced_rounds(engine, fed, 1, profiled=False)
@@ -475,4 +496,4 @@ def test_the_cell_is_in_the_benchmark():
     assert (mix["clients"], mix["samples_per_client"], mix["batch_size"]) \
         == (20, 48, 16)
     assert set(cell.limits) >= {"loss_gap_1", "rows_gap"}
-    assert spec["workloads"][-1]["name"] == CELL
+    assert CELL in [w["name"] for w in spec["workloads"]]
