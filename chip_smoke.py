@@ -14,9 +14,9 @@ paths and fails loudly on anything wrong. Phases, in order:
    HMMA/HGMMA instructions in the SASS of every tensor-core kernel
    (``TC_KERNELS``, each instantiation: the Gram's and K3's wgmma kernels,
    the bf16 forward, the conv gradients and fc1's forward and backward, and
-   the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32``, HMMA in
-   ``conv2_fwd_tf32``, ``conv2_wgrad_tf32`` and ``stem_wgrad_tf32`` (both
-   sparse mma), ``conv2_dgrad_tf32``, ``dense_fwd_tf32`` and
+   the f32 path's 3xTF32 kernels: HGMMA in ``stem_raw_tf32`` and
+   ``conv2_dgrad_tf32``, HMMA in ``conv2_fwd_tf32``, ``conv2_wgrad_tf32``
+   and ``stem_wgrad_tf32`` (both sparse mma), ``dense_fwd_tf32`` and
    ``dense_bwd_tf32``).
 3. Gram kernel (3xTF32 on the tensor cores) against its plain version at
    the main path's [100, 421,642], with its first 20 rows scaled x10 (the
@@ -71,7 +71,8 @@ paths and fails loudly on anything wrong. Phases, in order:
    and agreeing on > 0.99 of all outputs),
    timed in turns with CUDA events beside the one PyTorch call that
    computes the same product (cuDNN, ``baddbmm``, TF32 off; three timings
-   of it, the median kept, the spread printed): conv2's forward and
+   of it in the same turns, the median kept, the spread printed): conv2's
+   forward and
    gradient kernels in both dtypes, the stem's weight gradient in f32
    (``stem_wgrad_tf32``, held to f64 like conv2's), the stem's forward
    also in f32 (``stem_fwd_f32``), fc1's f32 forward and backward
@@ -273,7 +274,7 @@ TF32_OPS = {"stem_raw_tf32_kernel": "HGMMA",
             "conv2_fwd_tf32_kernel": "HMMA",
             "conv2_wgrad_tf32_kernel": "HMMA",
             "stem_wgrad_tf32_kernel": "HMMA",
-            "conv2_dgrad_tf32_kernel": "HMMA",
+            "conv2_dgrad_tf32_kernel": "HGMMA",
             "dense_fwd_tf32_kernel": "HMMA",
             "dense_bwd_tf32_kernel": "HMMA"}
 DROPOUT_SOURCE = f"{CSRC}/client_dropout.cu"
@@ -1004,6 +1005,18 @@ def turns(kern, plain, iters: int = 20) -> tuple:
     return (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
 
 
+def turns_beside(kern, plain, lib, iters: int = 20) -> tuple:
+    """(kernel ms, plain ms, the library call's three runs sorted, or
+    None without one): CUDA-event means in turns plain, library, kernel,
+    library, kernel, library, plain."""
+    if lib is None:
+        return (*turns(kern, plain, iters), None)
+    p0, l0, k0, l1, k1, l2, p1 = (
+        time_ms(lambda _, fn=fn: fn(), None, iters)
+        for fn in (plain, lib, kern, lib, kern, lib, plain))
+    return (k0 + k1) / 2, (p0 + p1) / 2, sorted((l0, l1, l2))
+
+
 def phase_fused_kernels() -> dict:
     """7a: every local-training kernel against its plain version on one
     step's activations at the north star's shapes; returns the rows of the
@@ -1357,13 +1370,11 @@ def phase_fused_kernels() -> dict:
                "client_ce": ("ce", f32), "client_sq_norm": ("sq_norm", f32),
                "client_sgd_update": ("sgd_update", f32)}
     for name, (kern, plain, lib, moved, flops, dt) in cases.items():
-        ms, plain_ms = turns(kern, plain)
         # The library's time moves between runs (cuDNN's conv2 forward
         # took 1.47 and 2.42 ms in two runs of one build on an H100 80GB
-        # HBM3 at 700 W): three timings, the median kept, the spread
-        # printed.
-        lib_runs = sorted(time_ms(lambda _: lib(), None) for _ in range(3)) \
-            if lib else None
+        # HBM3 at 700 W): three timings in the turns, the median kept, the
+        # spread printed.
+        ms, plain_ms, lib_runs = turns_beside(kern, plain, lib)
         library_ms = lib_runs[1] if lib else None
         bound_ms, bound_by = bound(moved, flops, dt)
         lib_text = (f"{library_ms:.4f} ms (runs {lib_runs[0]:.4f}-"

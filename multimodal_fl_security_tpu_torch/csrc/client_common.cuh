@@ -145,7 +145,7 @@ __device__ __forceinline__ void mma1688_tf32(float (&d)[4],
 }
 
 // ------------------------------------------------ copies and wgmma
-// (client_stem_raw.cu and probe_contract.cu)
+// (client_stem_raw.cu, client_conv.cu and probe_contract.cu)
 
 // 16 bytes from global src (16-byte aligned) to shared dst, of which the
 // first src_bytes are read and the rest zeroed; 0 reads nothing.
@@ -195,6 +195,82 @@ __device__ __forceinline__ uint64_t mft_wgmma_desc(uint32_t addr, int lbo,
   return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+// TF32 wgmma, A from shared memory (a descriptor) or from registers (_RS).
+// kAccumulate false writes d (scale-d 0) and reads nothing of it.
+#define MFT_WGMMA_TF32(N, REGS, P, D, C)                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" \
+               REGS "}, %" #D ", %" #C ", p, 1, 1;\n}\n"
+#define MFT_WGMMA_TF32_RS(N, REGS, AREGS, P, C)                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" \
+               REGS "}, {" AREGS "}, %" #C ", p, 1, 1;\n}\n"
+#define MFT_R16                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define MFT_R32                                                              \
+  MFT_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+          "%28, %29, %30, %31"
+#define MFT_O16(C, d)                                                        \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),   \
+      C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]),   \
+      C(d[15])
+#define MFT_RW(x) "+f"(x)
+#define MFT_W(x) "=f"(x)
+
+// d (+)= A (64 x 8) B^T (B: 64 x 8), both K-major in shared memory: tf32 in,
+// f32 sums.
+template <bool kAccumulate>
+__device__ __forceinline__ void mft_wgmma_tf32_n64(float (&d)[32],
+                                                   uint64_t da, uint64_t db) {
+  if constexpr (kAccumulate) {
+    MFT_WGMMA_TF32(64, MFT_R32, 34, 32, 33)
+                 : MFT_O16(MFT_RW, d), MFT_O16(MFT_RW, (d + 16))
+                 : "l"(da), "l"(db), "r"(1));
+  } else {
+    MFT_WGMMA_TF32(64, MFT_R32, 34, 32, 33)
+                 : MFT_O16(MFT_W, d), MFT_O16(MFT_W, (d + 16))
+                 : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+// d (+)= A (64 x 8, from registers) B^T (B: 32 x 8, K-major in shared
+// memory): tf32 in, f32 sums. a: this thread's A fragment, as mma.sync's
+// m16n8k8 A fragment of the warp's 16 rows (warp w of the warpgroup: rows
+// 16 w ..); it is read asynchronously, so it stays unchanged until the
+// wgmma is waited for.
+template <bool kAccumulate>
+__device__ __forceinline__ void mft_wgmma_tf32_n32_rs(float (&d)[16],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  if constexpr (kAccumulate) {
+    MFT_WGMMA_TF32_RS(32, MFT_R16, "%16, %17, %18, %19", 21, 20)
+                 : MFT_O16(MFT_RW, d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  } else {
+    MFT_WGMMA_TF32_RS(32, MFT_R16, "%16, %17, %18, %19", 21, 20)
+                 : MFT_O16(MFT_W, d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(0));
+  }
+}
+
+#undef MFT_W
+#undef MFT_RW
+#undef MFT_O16
+#undef MFT_R32
+#undef MFT_R16
+#undef MFT_WGMMA_TF32_RS
+#undef MFT_WGMMA_TF32
+
+// Keeps the compiler from moving reads of d above the wgmma wait that
+// completes the wgmmas writing it.
+template <int kN>
+__device__ __forceinline__ void mft_wgmma_fence_operands(float (&d)[kN]) {
+#pragma unroll
+  for (int e = 0; e < kN; ++e) asm volatile("" : "+f"(d[e])::"memory");
 }
 
 // ------------------------------------------------ convolution arguments

@@ -191,13 +191,12 @@ __device__ __forceinline__ const T* mft_slab(const MftView& v, int c, int n) {
 // 16-byte aligned), as conv2's forward and fc1's backward write them; the
 // thread loads pairs 8 (t + 256 k) .. + 7 with three vector loads each,
 // issued together. Otherwise: any strides and types, one element at a time
-// when routed; there, kPairs of the pairs, from channel co0 of load's on
-// (route's co counts from co0).
-template <bool kDense, int kPairs = kC2Wins>
+// when routed.
+template <bool kDense>
 struct C2Windows;
 
 template <>
-struct C2Windows<true, kC2Wins> {
+struct C2Windows<true> {
   static constexpr int kSlots = 16;
   uint4 dp[2], h[2];
   uint2 q[2];
@@ -235,16 +234,15 @@ struct C2Windows<true, kC2Wins> {
   }
 };
 
-template <int kPairs>
-struct C2Windows<false, kPairs> {
-  static constexpr int kSlots = (kPairs + kTcThreads - 1) / kTcThreads;
+template <>
+struct C2Windows<false> {
+  static constexpr int kSlots = (kC2Wins + kTcThreads - 1) / kTcThreads;
   const MftView *dp_, *h_, *arg_;
-  int c_, n_, co0_;
+  int c_, n_;
 
   __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
-                                       const MftView& varg, int c, int n,
-                                       int co0 = 0) {
-    dp_ = &vdp, h_ = &vh, arg_ = &varg, c_ = c, n_ = n, co0_ = co0;
+                                       const MftView& varg, int c, int n) {
+    dp_ = &vdp, h_ = &vh, arg_ = &varg, c_ = c, n_ = n;
   }
 
   static __device__ __forceinline__ int pair(int slot) {
@@ -255,13 +253,13 @@ struct C2Windows<false, kPairs> {
   __device__ __forceinline__ void route(Route&& put) const {
     for (int slot = 0; slot < kSlots; ++slot) {
       const int i = pair(slot);
-      if (i < kPairs) {
-        const int co = co0_ + i / kC2Pooled, p = i % kC2Pooled;
+      if (i < kC2Wins) {
+        const int co = i / kC2Pooled, p = i % kC2Pooled;
         const int oi = p / kC2Pw, oj = p % kC2Pw;
         const float hv = mft_ld(*h_, mft_off(*h_, c_, n_, co, oi, oj));
         const float g =
             hv > 0.f ? mft_ld(*dp_, mft_off(*dp_, c_, n_, co, oi, oj)) : 0.f;
-        put(slot, i / kC2Pooled, p,
+        put(slot, co, p,
             static_cast<int>(mft_ld(*arg_, mft_off(*arg_, c_, n_, co, oi, oj))),
             g);
       }
@@ -557,56 +555,6 @@ __device__ __forceinline__ void mma_sp16816_tf32(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "r"(b[2]), "r"(b[3]), "r"(e));
 }
-
-// conv2's pooled gradient, pooled output and argmax of one sample in f32,
-// as C2Windows<true> stages them in bf16: dense NCHW slabs (dp, h f32; arg
-// bytes; 16-byte aligned), pairs 4 (t + 256 k) .. + 3 with three vector
-// loads each, issued together; kPairs of the pairs (a multiple of 4), from
-// channel co0 of load's on, as C2Windows<false, kPairs> routes them. Other
-// strides and types: C2Windows<false, kPairs>.
-template <int kPairs>
-struct C2WindowsF32 {
-  static constexpr int kLoads = (kPairs / 4 + kTcThreads - 1) / kTcThreads;
-  static constexpr int kSlots = 4 * kLoads;
-  float4 dp[kLoads], h[kLoads];
-  uint32_t q[kLoads];
-
-  __device__ __forceinline__ void load(const MftView& vdp, const MftView& vh,
-                                       const MftView& varg, int c, int n,
-                                       int co0 = 0) {
-    const int base = co0 * kC2Pooled;
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int i0 = 4 * (threadIdx.x + k * kTcThreads);
-      if (i0 < kPairs) {
-        dp[k] = *reinterpret_cast<const float4*>(mft_slab<float>(vdp, c, n) +
-                                                 base + i0);
-        h[k] = *reinterpret_cast<const float4*>(mft_slab<float>(vh, c, n) +
-                                                base + i0);
-        q[k] = *reinterpret_cast<const uint32_t*>(
-            mft_slab<uint8_t>(varg, c, n) + base + i0);
-      }
-    }
-  }
-
-  static __device__ __forceinline__ int pair(int slot) {
-    return 4 * (threadIdx.x + (slot / 4) * kTcThreads) + slot % 4;
-  }
-
-  template <typename Route>
-  __device__ __forceinline__ void route(Route&& put) const {
-#pragma unroll
-    for (int slot = 0; slot < kSlots; ++slot) {
-      const int i = pair(slot);
-      if (i < kPairs) {
-        const int k = slot / 4, e = slot % 4;
-        const float g = mft_f4_at(h[k], e) > 0.f ? mft_f4_at(dp[k], e) : 0.f;
-        put(slot, i / kC2Pooled, i % kC2Pooled,
-            static_cast<int>((q[k] >> (8 * e)) & 0xffu), g);
-      }
-    }
-  }
-};
 
 // Grid (client, rank); rank r sums samples [r B / kWgCluster, (r + 1) B /
 // kWgCluster) of its client. kDenseX: the input is an NHWC f32 slab
@@ -904,231 +852,406 @@ conv2_wgrad_tf32_kernel(MftView x, MftView dp, MftView h, MftView arg,
 
 // --------------------------------------------- conv2's input gradient, f32
 //
-// conv2_dgrad_tf32: conv2_dgrad_tc's implicit GEMM in f32, on
-// mma.sync.m16n8k8 TF32 in 3xTF32 as conv2_wgrad_tf32 forms its products.
-// It replaces, in f32, the da of _kdot3d_bwd
+// conv2_dgrad_tf32: conv2's input gradient in f32, on warpgroup wgmma TF32
+// in 3xTF32. It replaces, in f32, the da of _kdot3d_bwd
 // (multimodal_fl_security_tpu/ops/fused_kernel.py:144-154), reached through
 // jax.grad at :433 inside fused_local_train (K4): dX[(y, x), ci] = sum over
 // (kh, kw, co) of dZ[(y + 1 - kh, x + 1 - kw), co] W[co, ci, kh, kw]; per
-// sample M = 196 (13 m16 tiles), N = 32, K = 576.
-//  - Both operands have k = co contiguous: A is the rows [halo pixel][co]
-//    of the zero-bordered dZ tile shifted by (kh, kw), B the weights staged
-//    [kh * 3 + kw][ci][co]. ldmatrix without .trans gives lane l word l % 4
-//    of row l / 4 of an 8 x 16-byte matrix: the TF32 fragment of a [row][k]
-//    tile for A and of an [n][k] tile for B. Every fragment comes from
-//    ldmatrix, and the shift by (kh, kw) moves whole 16-byte rows.
-//  - The budget: W's hi and lo (2 x 76.5 KB, rows padded to 68 words) and
-//    the dZ tile [16 x 16][64] as hi and lo (2 x 68 KB) are 289 KB, over
-//    the 227 KB a block may use. So the tile holds half the channels,
-//    [16 x 16][32] (2 x 36 KB), and a sample is two passes over K, co in
-//    [0, 32) and then [32, 64), its sums kept in registers between them; W
-//    stays resident for the block's kDgSamples samples. 225 KB: one block
-//    an SM. (Splitting ci across two blocks would route every window
-//    twice; splitting an operand into hi and lo as its fragments are read
-//    costs ~11 integer operations an element on every read.)
-//  - Each operand is split into hi = tf32(a) and lo = tf32(a - hi)
-//    (mft_tf32_rne) once, as it is staged; lo hi + hi lo + hi hi in f32
-//    sums. A fresh accumulator takes each (kh, kw) of a pass (4 k8 steps,
-//    12 mma an n8 tile) and is added to the sums in f32: the tensor cores'
-//    sums do not round to nearest.
-//  - Warp w: output rows 16 w and 16 (w + 8) + [0, 16) of the 208 (warps
-//    5..7 one tile), all 32 channels; the B fragments serve both tiles.
-//    While the tensor cores run one pass, the next pass's windows are
-//    loaded into registers. Every sum runs in a fixed order, with no
-//    atomics: two calls are bitwise equal.
+// sample M = 196, N = 32, K = 576.
 // What bounds it: the routed work (dZ is nonzero at one position of a
 // window) is ~5.8 GFLOP over 100 clients x 32 samples at the north star
 // (0.035 ms in 3xTF32, 0.086 at the f32 CUDA-core rate) against 178 MB of
 // operands (dp, h, the argmax, W, dX: 0.053 ms at 3.35 TB/s): bytes. The
-// dense GEMM the tensor cores run is 23.1 GFLOP, 69 GFLOP of TF32 mma in
-// 3xTF32 (0.14 ms at 495 TFLOP/s), and each k8 step of a two-tile warp
-// reads its fragments with 8 ldmatrix for 24 mma: shared memory and the
-// tensor cores bound the design.
+// dense GEMM the tensor cores run is 23.1 GFLOP, 69 GFLOP of TF32 products
+// in 3xTF32 (0.14 ms at 495 TFLOP/s).
+// What the design does about it:
+//  - A client's samples are stacked into one map kDtL = 15 pixels wide:
+//    sample n's rows y at stacked rows 15 n + 1 + y, row 15 n and column 14
+//    zero, so that a zero row and a zero column border every sample on all
+//    four sides. A GEMM row m is a stacked pixel, and tap (kh, kw) reads
+//    the A row m + 15 (1 - kh) + (1 - kw): a shift of the whole tile. 196
+//    of a sample's 225 rows are outputs (87%), and 64-row tiles run on over
+//    sample boundaries.
+//  - A (dZ, split into hi and lo once) is staged as planes [4 co][pixel][4
+//    co] and read into registers by ldmatrix at the shifted rows (16-byte
+//    rows, at any offset); B is W staged [tap][n][co], K-major, W_hi in
+//    rows n 0-31 and W_lo in 32-63, a client's hi and lo resident (144 KB).
+//    wgmma.m64n32k8 from registers: A_lo W_hi, A_hi W_lo, A_hi W_hi.
+//  - An item is 4 tiles (256 rows) of one client; a persistent grid of at
+//    most one block an SM walks a contiguous range of the C x ceil((225 B -
+//    16) / 256) items (restaging W when the client changes), so the last
+//    wave is at most one item short at any (C, B).
+//  - Warp-specialised: two producer warpgroups route an item's windows
+//    (the relu through h > 0, the position from the argmax) into a ring of
+//    two stages of 16 channels each (pixels [m0 - 16, m0 + 272), 36 KB),
+//    each owning one slot and holding its next stage's loads in registers,
+//    while two consumer warpgroups, two tiles each, run the stage before;
+//    named barriers hand the stages over, and setmaxnreg moves registers
+//    from the producers to the consumers' wgmma pipeline.
+//  - The tensor cores' f32 sums do not round to nearest (gram.cu): a fresh
+//    accumulator takes each (stage, tap) of a tile (2 k8 steps) and is
+//    added to the sums in f32. Every sum runs in a fixed order, with no
+//    atomics: two calls are bitwise equal.
 
-constexpr int kTfWRow = kC2Out + 4;   // 68 floats: [tap][ci][co] rows
-constexpr int kTfHalf = kC2Out / 2;   // 32 channels a pass
-constexpr int kTfHRow = kTfHalf + 4;  // 36 floats: [halo pixel][co] rows
-constexpr int kC2HalfWins = kC2Wins / 2;  // 1568 (co, window) pairs a pass
-constexpr size_t kTfDgradSmem =
-    sizeof(float) * 2 * (9 * kC2In * kTfWRow + kHaloPix * kTfHRow);
+constexpr int kDtThreads = 512;  // two consumer warpgroups, two producers
+constexpr int kDtL = kC2Hw + 1;         // 15: a stacked row, column 14 zero
+constexpr int kDtSample = kDtL * kDtL;  // 225 stacked pixels a sample
+constexpr int kDtTiles = 4;             // 64-row tiles an item
+constexpr int kDtRows = 64 * kDtTiles;  // 256
+constexpr int kDtReach = kDtL + 1;      // 16: the farthest a tap reaches
+constexpr int kDtPix = kDtRows + 2 * kDtReach;  // 288 pixels a stage
+constexpr int kDtCo = 16;                       // channels co a stage
+constexpr int kDtStages = kC2Out / kDtCo;       // 4 an item
+constexpr int kDtLbo = kDtPix * 16;             // A: to the next 4 co
+constexpr int kDtPlane = kDtCo / 4 * kDtLbo;    // A's hi, or its lo: 18 KB
+constexpr int kDtWSbo = kC2Out / 4 * 128;       // B: to the next 8 rows n
+constexpr int kDtWTap = 2 * kC2In * kC2Out * 4;  // a tap's [W_hi | W_lo]
+constexpr size_t kDtSmem = 9 * kDtWTap + 2 * 2 * kDtPlane;  // 216 KB
+constexpr int kDtFull = 1, kDtEmpty = 3;  // named barriers of slot 0 (+1)
+constexpr int kDtBarThreads = 384;        // both consumers and a producer
+// setmaxnreg: the producers give registers to the consumers' wgmma pipeline.
+constexpr int kDtProducerRegs = 104, kDtConsumerRegs = 152;
 
-static_assert(kTfDgradSmem <= kMftMaxSmem, "one block an SM");
+static_assert(kDtSmem <= kMftMaxSmem, "one block an SM");
+static_assert(kDtCo / 4 * kDtPix % 128 == 0 && kDtStages % 2 == 0,
+              "whole float4 tasks a producer thread; fills in pairs");
+static_assert(kDtThreads / 2 * (kDtProducerRegs + kDtConsumerRegs) <= 65536,
+              "the register file holds both roles' shares");
 
-// One pass of conv2_dgrad_tf32 over K for a warp's kTiles m16 tiles: the
-// nine taps of the staged channel half, each tap's 4 k8 steps into a fresh
-// accumulator added to acc in f32. a_hi, a_lo: this lane's ldmatrix
-// addresses of dZ's pixel 0 (its column, 4 (li >> 1)); pix0: its rows'
-// pixels at tap (0, 0), -1 for a pad row (which reads the zero pixel 0);
-// b_hi, b_lo: its addresses in W's tap 0, co 0.
-template <int kTiles>
-__device__ __forceinline__ void c2_dgrad_pass(float (&acc)[2][4][4],
-                                              const int (&pix0)[2],
-                                              uint32_t a_hi, uint32_t a_lo,
-                                              uint32_t b_hi, uint32_t b_lo,
-                                              int half) {
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int shift = (tap / 3) * kHaloW + tap % 3;
-    uint32_t ah_row[kTiles], al_row[kTiles];
+// Named barriers of the two consumer warpgroups and one producer.
+__device__ __forceinline__ void dt_bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kDtBarThreads)
+               : "memory");
+}
+
+__device__ __forceinline__ void dt_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kDtBarThreads)
+               : "memory");
+}
+
+// The sample n, row y and column x of stacked pixel u of a client's map
+// (false: a zero pixel: a border, or past the client's samples).
+__device__ __forceinline__ bool dt_pixel(int u, int batch, int& n, int& y,
+                                         int& x) {
+  const int r = u / kDtL;
+  x = u - r * kDtL;
+  n = r / kDtL;
+  y = r - n * kDtL - 1;
+  return u >= 0 && x < kC2Hw && y >= 0 && n < batch;
+}
+
+// A stage's raw windows in a producer thread's registers: task pt + 128 j
+// is (sample, channel quad cq, window p) of the up to 3 samples whose
+// pixels the stage holds, 16 channels x 49 windows a sample; the pooled
+// gradient and the pooled map of its 4 channels, and their argmax bytes.
+constexpr int kDtBlock = kDtCo * kC2Pooled;               // 784 pairs
+constexpr int kDtGroups = (3 * kDtBlock / 4 + 127) / 128;  // 5 a thread
+
+struct DtRaw {
+  float dp[kDtGroups][4], h[kDtGroups][4];
+  uint32_t q[kDtGroups];
+};
+
+// The first sample whose pixels stacked pixels u0 + [0, kDtPix) hold.
+__device__ __forceinline__ int dt_first_sample(int u0) {
+  return u0 > 0 ? u0 / kDtSample : 0;
+}
+
+// Loads stage s of the item at stacked pixel u0 of client c into r: 12
+// scalar loads a task, a warp's 32 consecutive windows of a channel in one
+// 128-byte line. Dense: dp, h and the argmax are NCHW slabs.
+template <bool kDenseZ>
+__device__ __forceinline__ void dt_load(DtRaw& r, const MftView& dp,
+                                        const MftView& h, const MftView& arg,
+                                        int c, int batch, int u0, int s,
+                                        int pt) {
+  const int n0 = dt_first_sample(u0);
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      const int pix = pix0[j] >= 0 ? pix0[j] - shift : 0;
-      ah_row[j] = a_hi + pix * kTfHRow * sizeof(float);
-      al_row[j] = a_lo + pix * kTfHRow * sizeof(float);
-    }
-    const uint32_t b_tap =
-        (tap * kC2In * kTfWRow + half * kTfHalf) * sizeof(float);
-    float part[kTiles][4][4] = {};
+  for (int j = 0; j < kDtGroups; ++j) {
+    const int gi = pt + 128 * j, n = n0 + gi / (kDtBlock / 4);
+    const int rem = gi % (kDtBlock / 4), cq = rem / kC2Pooled;
+    const int p = rem - cq * kC2Pooled;
+    if (gi >= 3 * kDtBlock / 4 || n >= batch) continue;  // dt_route skips
+    const int co = kDtCo * s + 4 * cq;
+    if (kDenseZ) {
+      const int off = co * kC2Pooled + p;
+      const float* dps = mft_slab<float>(dp, c, n) + off;
+      const float* hs = mft_slab<float>(h, c, n) + off;
+      const uint8_t* as = mft_slab<uint8_t>(arg, c, n) + off;
+      uint32_t q = 0;
 #pragma unroll
-    for (int kc = 0; kc < kTfHalf / 8; ++kc) {
-      uint32_t ah[kTiles][4], al[kTiles][4];
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j) {
-        ldsm4(ah[j], ah_row[j] + kc * 8 * sizeof(float));
-        ldsm4(al[j], al_row[j] + kc * 8 * sizeof(float));
+      for (int e = 0; e < 4; ++e) {
+        r.dp[j][e] = dps[e * kC2Pooled];
+        r.h[j][e] = hs[e * kC2Pooled];
+        q |= static_cast<uint32_t>(as[e * kC2Pooled]) << (8 * e);
       }
+      r.q[j] = q;
+    } else {
+      const int wy = p / kC2Pw, wx = p % kC2Pw;
+      uint32_t q = 0;
 #pragma unroll
-      for (int ng = 0; ng < 2; ++ng) {
-        // ci 16 ng + [0, 16): b0, b1 of the n8 tile 2 ng, then 2 ng + 1.
-        const uint32_t off =
-            b_tap + (ng * 16 * kTfWRow + kc * 8) * sizeof(float);
-        uint32_t bh[4], bl[4];
-        ldsm4(bh, b_hi + off);
-        ldsm4(bl, b_lo + off);
+      for (int e = 0; e < 4; ++e) {
+        r.dp[j][e] = mft_ld(dp, mft_off(dp, c, n, co + e, wy, wx));
+        r.h[j][e] = mft_ld(h, mft_off(h, c, n, co + e, wy, wx));
+        q |= static_cast<uint32_t>(
+                 mft_ld(arg, mft_off(arg, c, n, co + e, wy, wx)))
+             << (8 * e);
+      }
+      r.q[j] = q;
+    }
+  }
+}
+
+// Stage s of the item at u0 from r into the hi and lo planes [co / 4]
+// [pixel][co % 4] of a ring slot: each window's gradient through the relu
+// (h > 0) at its argmax's position and 0 at the other three, split into hi
+// and lo, 4 channels in one 16-byte store a plane; positions outside the
+// stage's pixels are skipped, and a thread visits a window's positions
+// starting at its own, so that a warp's stores spread over the banks. The
+// first use of a slot in an item (s < 2) first zeroes the borders (column
+// 14, each sample's row 0, pixels past the client's samples); later stages
+// overwrite only the samples' pixels.
+__device__ __forceinline__ void dt_route(float* hi, const DtRaw& r,
+                                         int batch, int u0, int s, int pt) {
+  float* lo = hi + kDtPlane / 4;
+  if (s < 2) {
 #pragma unroll
-        for (int j = 0; j < kTiles; ++j) {
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            float(&d)[4] = part[j][2 * ng + s];
-            mma1688_tf32(d, al[j], bh[2 * s], bh[2 * s + 1]);  // small first
-            mma1688_tf32(d, ah[j], bl[2 * s], bl[2 * s + 1]);
-            mma1688_tf32(d, ah[j], bh[2 * s], bh[2 * s + 1]);
-          }
-        }
+    for (int k = 0; k < kDtCo / 4 * kDtPix / 128; ++k) {
+      const int id = pt + 128 * k;
+      const int cc = id / kDtPix, v = id - cc * kDtPix;
+      int n, y, x;
+      if (!dt_pixel(u0 + v, batch, n, y, x)) {
+        const int at = cc * (kDtLbo / 4) + v * 4;
+        *reinterpret_cast<float4*>(hi + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(lo + at) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
+  }
+  const int n0 = dt_first_sample(u0);
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
+  for (int j = 0; j < kDtGroups; ++j) {
+    const int gi = pt + 128 * j, n = n0 + gi / (kDtBlock / 4);
+    if (gi >= 3 * kDtBlock / 4 || n >= batch) continue;
+    const int rem = gi % (kDtBlock / 4), cq = rem / kC2Pooled;
+    const int p = rem - cq * kC2Pooled, wy = p / kC2Pw, wx = p % kC2Pw;
+    float gh[4], gl[4];
+    int q[4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+    for (int e = 0; e < 4; ++e) {
+      const float g = r.h[j][e] > 0.f ? r.dp[j][e] : 0.f;
+      gh[e] = mft_tf32_rne(g);
+      gl[e] = mft_tf32_rne(g - gh[e]);
+      q[e] = static_cast<int>((r.q[j] >> (8 * e)) & 0xffu);
+    }
+    const int v0 = kDtSample * n + kDtL * (2 * wy + 1) + 2 * wx - u0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][nt][e] += part[j][nt][e];
+    for (int k = 0; k < 4; ++k) {
+      const int pos = (k + pt) & 3;
+      const int v = v0 + kDtL * (pos >> 1) + (pos & 1);
+      if (static_cast<unsigned>(v) < static_cast<unsigned>(kDtPix)) {
+        const int at = cq * (kDtLbo / 4) + 4 * v;
+        *reinterpret_cast<float4*>(hi + at) = make_float4(
+            pos == q[0] ? gh[0] : 0.f, pos == q[1] ? gh[1] : 0.f,
+            pos == q[2] ? gh[2] : 0.f, pos == q[3] ? gh[3] : 0.f);
+        *reinterpret_cast<float4*>(lo + at) = make_float4(
+            pos == q[0] ? gl[0] : 0.f, pos == q[1] ? gl[1] : 0.f,
+            pos == q[2] ? gl[2] : 0.f, pos == q[3] ? gl[3] : 0.f);
       }
     }
   }
 }
 
-// One block per (kDgSamples samples, client). Dense dX: an NHWC f32 slab
+// A fragments of a tile's 2 k8 steps at a tap, hi and lo, by ldmatrix
+// (lane l: row 16 (warp) + 8 ((l / 8) & 1) + l % 8 of the tile, k 4 (l /
+// 16) + [0, 4)): la is this lane's address in the stage's hi plane.
+__device__ __forceinline__ void dt_frags(uint32_t (&ah)[2][4],
+                                         uint32_t (&al)[2][4], uint32_t la) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    ldsm4(ah[kk], la + 2 * kk * kDtLbo);
+    ldsm4(al[kk], la + 2 * kk * kDtLbo + kDtPlane);
+  }
+}
+
+// One chunk into d: a tap of a stage for a 64-row tile, 2 k8 steps of
+// A_lo W_hi, A_hi W_lo, then A_hi W_hi (the small terms first), the first
+// starting d afresh. b: the tap's co chunk in W (W_lo 32 rows on).
+__device__ __forceinline__ void dt_chunk(float (&d)[16],
+                                         const uint32_t (&ah)[2][4],
+                                         const uint32_t (&al)[2][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const uint32_t bk = b + 2 * kk * 128;
+    const uint64_t dbh = mft_wgmma_desc(bk, 128, kDtWSbo);
+    const uint64_t dbl = mft_wgmma_desc(bk + 4 * kDtWSbo, 128, kDtWSbo);
+    if (kk == 0) {
+      mft_wgmma_tf32_n32_rs<false>(d, al[kk], dbh);
+    } else {
+      mft_wgmma_tf32_n32_rs<true>(d, al[kk], dbh);
+    }
+    mft_wgmma_tf32_n32_rs<true>(d, ah[kk], dbl);
+    mft_wgmma_tf32_n32_rs<true>(d, ah[kk], dbh);
+  }
+}
+
+// acc += a completed chunk, in f32.
+__device__ __forceinline__ void dt_add(float (&acc)[16], float (&d)[16]) {
+  mft_wgmma_fence_operands(d);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += d[i];
+}
+
+// Grid: at most one block an SM; block b takes items [b I / G, (b + 1) I /
+// G) of the I = clients x items_per_client. Dense dX: an NHWC f32 slab
 // [14][14][32], 16-byte aligned, written two channels (8 bytes) a store;
 // otherwise any strides and types, one element at a time.
 template <bool kDenseZ, bool kDenseX>
-__global__ void __launch_bounds__(kTcThreads, 1)
+__global__ void __launch_bounds__(kDtThreads, 1)
 conv2_dgrad_tf32_kernel(MftView dp, MftView h, MftView arg, MftView w,
-                        MftView dx, int batch) {
+                        MftView dx, int batch, int items_per_client,
+                        long long total) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* wh = reinterpret_cast<float*>(smem_raw);  // [tap][ci][co]
-  float* wl = wh + 9 * kC2In * kTfWRow;
-  float* zh = wl + 9 * kC2In * kTfWRow;  // [halo pixel][co of the pass]
-  float* zl = zh + kHaloPix * kTfHRow;
-  const int c = blockIdx.y;
-  const int n0 = blockIdx.x * kDgSamples;
-  const int n1 = min(batch, n0 + kDgSamples);
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
-  const int gq = lane >> 2, tq = lane & 3;  // the accumulators' row, pair
-  // One channel half's windows at a time.
-  typename std::conditional<kDenseZ, C2WindowsF32<kC2HalfWins>,
-                            C2Windows<false, kC2HalfWins>>::type wr;
-  wr.load(dp, h, arg, c, n0, 0);
-  for (int i = t; i < 2 * kHaloPix * kTfHRow; i += kTcThreads) {
-    zh[i] = 0.f;  // the borders, of zh and zl
-  }
-  for (int i = t; i < 9 * kC2In * kC2Out; i += kTcThreads) {
-    const int kw = i % 3;  // w's own order: (co, ci, kh, kw), kw fastest
-    int r = i / 3;
-    const int kh = r % 3;
-    r /= 3;
-    const int ci = r % kC2In;
-    const int co = r / kC2In;
-    const float a = mft_ld(w, mft_off(w, c, co, ci, kh, kw));
-    const float hi = mft_tf32_rne(a);
-    const int at = ((kh * 3 + kw) * kC2In + ci) * kTfWRow + co;
-    wh[at] = hi;
-    wl[at] = mft_tf32_rne(a - hi);
-  }
-  // A (ldmatrix x4): matrix li is rows 8 (li & 1) + [0, 8) of a tile, k
-  // 4 (li >> 1) + [0, 4). This lane's row p of tile j sits at pixel
-  // (y + 2, x + 2) of the bordered tile at tap (0, 0).
-  const int tiles = warp + kTcWarps < kC2Rows / 16 ? 2 : 1;  // warp-uniform
-  int pix0[2];
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [tap][n][co], K-major
+  float* as = ws + 9 * kDtWTap / 4;                // [slot][hi, lo] planes
+  const long long i0 = blockIdx.x * total / gridDim.x;
+  const int count =
+      static_cast<int>((blockIdx.x + 1) * total / gridDim.x - i0);
+  const int t = threadIdx.x, wg = t / 128;
+
+  // W[c], split: float4 (tap, n, co / 4) holds co .. co + 3 of row n = ci
+  // (hi) and row 32 + ci (lo); 128 consecutive tasks fill 2 KB.
+  auto stage_w = [&](int c) {
+#pragma unroll 4
+    for (int id = t; id < 9 * kC2In * kC2Out / 4; id += kDtThreads) {
+      const int ci = (id / 128) % 4 * 8 + id % 8, kq = id / 8 % 16;
+      const int tap = id / 512;
+      float v[4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int p = (warp + j * kTcWarps) * 16 + (li & 1) * 8 + lr;
-    pix0[j] = p < kC2Pos ? (p / kC2Hw + 2) * kHaloW + p % kC2Hw + 2 : -1;
-  }
-  const uint32_t a_col = (li >> 1) * 4 * sizeof(float);
-  const uint32_t a_hi = mft_smem_addr(zh) + a_col;
-  const uint32_t a_lo = mft_smem_addr(zl) + a_col;
-  // B (ldmatrix x4): matrix li is ci 8 (li >> 1) + [0, 8), k 4 (li & 1)
-  // + [0, 4).
-  const uint32_t b_row =
-      (((li >> 1) * 8 + lr) * kTfWRow + (li & 1) * 4) * sizeof(float);
-  const uint32_t b_hi = mft_smem_addr(wh) + b_row;
-  const uint32_t b_lo = mft_smem_addr(wl) + b_row;
-  for (int n = n0; n < n1; ++n) {
-    float acc[2][4][4] = {};
-    for (int half = 0; half < 2; ++half) {
-      __syncthreads();  // W and the borders staged, or the last pass read
-      // Window (co, p): its four positions, the argmax's holding g.
-      wr.route([&](int, int col, int p, int q, float g) {
-        const float gh = mft_tf32_rne(g), gl = mft_tf32_rne(g - gh);
-        const int at =
-            ((2 * (p / kC2Pw) + 1) * kHaloW + 2 * (p % kC2Pw) + 1) * kTfHRow +
-            col;
-        const int pos[4] = {0, kTfHRow, kHaloW * kTfHRow,
-                            (kHaloW + 1) * kTfHRow};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          zh[at + pos[k]] = q == k ? gh : 0.f;
-          zl[at + pos[k]] = q == k ? gl : 0.f;
-        }
-      });
-      __syncthreads();
-      if (half == 0) {
-        wr.load(dp, h, arg, c, n, kTfHalf);
-      } else if (n + 1 < n1) {
-        wr.load(dp, h, arg, c, n + 1, 0);
+      for (int e = 0; e < 4; ++e) {
+        v[e] = mft_ld(w, mft_off(w, c, 4 * kq + e, ci, tap / 3, tap % 3));
       }
-      if (tiles == 2) {
-        c2_dgrad_pass<2>(acc, pix0, a_hi, a_lo, b_hi, b_lo, half);
-      } else {
-        c2_dgrad_pass<1>(acc, pix0, a_hi, a_lo, b_hi, b_lo, half);
+      const float4 hv = make_float4(mft_tf32_rne(v[0]), mft_tf32_rne(v[1]),
+                                    mft_tf32_rne(v[2]), mft_tf32_rne(v[3]));
+      float* dst =
+          ws + tap * (kDtWTap / 4) + ci / 8 * (kDtWSbo / 4) + kq * 32 +
+          ci % 8 * 4;
+      *reinterpret_cast<float4*>(dst) = hv;
+      *reinterpret_cast<float4*>(dst + 4 * (kDtWSbo / 4)) = make_float4(
+          mft_tf32_rne(v[0] - hv.x), mft_tf32_rne(v[1] - hv.y),
+          mft_tf32_rne(v[2] - hv.z), mft_tf32_rne(v[3] - hv.w));
+    }
+  };
+  // Every thread meets the others here when the client changes: the old
+  // W's wgmmas have completed, and the new W is visible to wgmma after.
+  int client = -1;
+  auto switch_w = [&](int c) {
+    if (c == client) return;
+    __syncthreads();
+    stage_w(c);
+    mft_fence_proxy_async();
+    __syncthreads();
+    client = c;
+  };
+  const int fills = kDtStages * count;
+
+  if (wg >= 2) {  // producer ph fills slot ph: fills ph, ph + 2, ...
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kDtProducerRegs)
+                 : "memory");
+    const int pt = t % 128, ph = wg - 2;
+    auto at = [&](int k, int& c, int& u0) {
+      const long long item = i0 + k / kDtStages;
+      c = static_cast<int>(item / items_per_client);
+      u0 = static_cast<int>(item % items_per_client) * kDtRows + kDtL -
+           kDtReach;
+    };
+    DtRaw raw;  // the next fill's windows
+    int c, u0;
+    at(ph, c, u0);
+    dt_load<kDenseZ>(raw, dp, h, arg, c, batch, u0, ph, pt);
+    for (int k = ph; k < fills; k += 2) {
+      at(k, c, u0);
+      if (k % kDtStages == ph) switch_w(c);
+      if (k >= 2) dt_bar_sync(kDtEmpty + ph);
+      dt_route(as + ph * 2 * (kDtPlane / 4), raw, batch, u0, k % kDtStages,
+               pt);
+      mft_fence_proxy_async();
+      dt_bar_arrive(kDtFull + ph);
+      if (k + 2 < fills) {
+        at(k + 2, c, u0);
+        dt_load<kDenseZ>(raw, dp, h, arg, c, batch, u0, (k + 2) % kDtStages,
+                         pt);
       }
     }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kDtConsumerRegs)
+               : "memory");
+
+  // A consumer: tiles 2 wg and 2 wg + 1 of each item.
+  const int wt = t % 128, lane = t % 32, gq = lane / 4, tq = lane % 4;
+  const uint32_t w0 = mft_smem_addr(ws);
+  const int li = lane / 8, lr = lane % 8;
+  const uint32_t l0 =  // this lane's A row of tile 2 wg at tap (1, 1)
+      mft_smem_addr(as) + (li / 2) * kDtLbo +
+      (2 * wg * 64 + kDtReach + 16 * (wt / 32) + 8 * (li % 2) + lr) * 16;
+  float acc0[16], acc1[16], da[16], db[16];
+  for (int il = 0; il < count; ++il) {
+    const long long item = i0 + il;
+    const int c = static_cast<int>(item / items_per_client);
+    const int m0 = static_cast<int>(item % items_per_client) * kDtRows + kDtL;
+    switch_w(c);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (j >= tiles) break;
+    for (int i = 0; i < 16; ++i) acc0[i] = acc1[i] = 0.f;
+    // Chunks (stage, tap) in order; a tap's two chunks, tile 0's and tile
+    // 1's, in flight together, and each added as it completes.
+#pragma unroll 1
+    for (int st = 0; st < kDtStages * 9; ++st) {
+      const int s = st / 9, tap = st - 9 * s, k = kDtStages * il + s;
+      if (tap == 0) dt_bar_sync(kDtFull + (k & 1));
+      const int shift = kDtL * (1 - tap / 3) + (1 - tap % 3);
+      const uint32_t la = l0 + (k & 1) * 2 * kDtPlane + shift * 16;
+      const uint32_t b = w0 + tap * kDtWTap + s * (kDtCo / 4) * 128;
+      uint32_t ah0[2][4], al0[2][4], ah1[2][4], al1[2][4];
+      dt_frags(ah0, al0, la);
+      dt_frags(ah1, al1, la + 64 * 16);
+      mft_wgmma_fence();
+      dt_chunk(da, ah0, al0, b);
+      mft_wgmma_commit();
+      dt_chunk(db, ah1, al1, b);
+      mft_wgmma_commit();
+      mft_wgmma_wait<1>();
+      dt_add(acc0, da);
+      mft_wgmma_wait<0>();
+      dt_add(acc1, db);
+      if (tap == 8 && k + 2 < fills) dt_bar_arrive(kDtEmpty + (k & 1));
+    }
+
+    // acc[4 j + 2 e + f]: row 16 (wt / 32) + gq + 8 e of the tile, ci
+    // 8 j + 2 tq + f; rows off the samples' pixels are not written.
+    auto store = [&](const float (&acc)[16], int tile) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + tile * 64 + 16 * (wt / 32) + gq + 8 * e;
+        int n, y, x;
+        if (!dt_pixel(m, batch, n, y, x)) continue;
 #pragma unroll
-        for (int eh = 0; eh < 2; ++eh) {
-          const int row = (warp + j * kTcWarps) * 16 + gq + eh * 8;
-          const int ci = nt * 8 + 2 * tq;
-          if (row >= kC2Pos) continue;
-          const float v0 = acc[j][nt][2 * eh], v1 = acc[j][nt][2 * eh + 1];
+        for (int j = 0; j < 4; ++j) {
+          const int ci = 8 * j + 2 * tq;
+          const float v0 = acc[4 * j + 2 * e], v1 = acc[4 * j + 2 * e + 1];
           if (kDenseX) {
             float* out = static_cast<float*>(dx.ptr) + c * dx.st[0] +
-                         n * dx.st[1] + row * kC2In + ci;
+                         n * dx.st[1] + (y * kC2Hw + x) * kC2In + ci;
             *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
           } else {
-            const int y = row / kC2Hw, x = row % kC2Hw;
             mft_st(dx, mft_off(dx, c, n, ci, y, x), v0);
             mft_st(dx, mft_off(dx, c, n, ci + 1, y, x), v1);
           }
         }
       }
-    }
+    };
+    store(acc0, 2 * wg);
+    store(acc1, 2 * wg + 1);
   }
 }
 
@@ -2304,7 +2427,7 @@ stem_fwd_tc_kernel(MftView x, MftView w, MftView b, MftView out, MftView arg,
 // ------------------------------------------------- conv2's forward, f32
 //
 // conv2_fwd_tf32: conv2_fwd_tc's implicit GEMM in f32, on mma.sync.m16n8k8
-// TF32 in 3xTF32 as conv2_dgrad_tf32 forms its products. It replaces, in
+// TF32 in 3xTF32 as dense_fwd_tf32 forms its products. It replaces, in
 // f32, conv2 with its bias, relu and 2 x 2 pool in forward_impl
 // (multimodal_fl_security_tpu/ops/fused_train.py:383-401, through kdot3d,
 // fused_kernel.py:136-139, whose f32 dots take f32 sums) inside
@@ -3168,6 +3291,9 @@ int mft_conv2_dgrad_tf32(const MftView* dp, const MftView* h,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   // The main path's layouts: the maps NCHW, f32, and dX NHWC.
   const bool dz = dense_slab(*dp, kF32, kC2Pooled, kC2Pw, 1) &&
                   dense_slab(*h, kF32, kC2Pooled, kC2Pw, 1) &&
@@ -3177,10 +3303,17 @@ int mft_conv2_dgrad_tf32(const MftView* dp, const MftView* h,
                                  : conv2_dgrad_tf32_kernel<true, false>)
                          : (dout ? conv2_dgrad_tf32_kernel<false, true>
                                  : conv2_dgrad_tf32_kernel<false, false>);
-  const dim3 grid((g.batch + kDgSamples - 1) / kDgSamples, a->clients);
-  return launch_tc(kernel, grid, kTfDgradSmem,
-                   static_cast<cudaStream_t>(stream), g.batch, dp, h, arg, w,
-                   dx);
+  // Items of 256 stacked rows: rows 15 .. 225 B - 2 hold a client's pixels.
+  const long long rows = static_cast<long long>(kDtSample) * g.batch - 1 - kDtL;
+  const int items = static_cast<int>((rows + kDtRows - 1) / kDtRows);
+  const long long total = static_cast<long long>(a->clients) * items;
+  const long long grid = total < sms ? total : sms;
+  err = mft_smem_optin(kernel, kDtSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(grid), kDtThreads, kDtSmem,
+           static_cast<cudaStream_t>(stream)>>>(*dp, *h, *arg, *w, *dx,
+                                                g.batch, items, total);
+  return cudaGetLastError();
 }
 
 // The forward's tensor-core kernels, for the compute dtype bf16: the same

@@ -44,7 +44,7 @@
 //    through jax.grad at fused_kernel.py:433 (dW = dz^T x, db = the sum of
 //    dz over rows, dx = dz W^T in the JAX package's [in, out] order).
 //    dense_fwd_tc's and dense_bwd_tc's designs carried to f32 on
-//    mma.sync.m16n8k8 TF32 in 3xTF32, as conv2_dgrad_tf32 forms its
+//    mma.sync.m16n8k8 TF32 in 3xTF32, as conv2_fwd_tf32 forms its
 //    products (client_conv.cu): each f32 operand split into hi = tf32(a) and
 //    lo = tf32(a - hi) (mft_tf32_rne) once, as it is staged; lo hi + hi lo
 //    + hi hi; a fresh accumulator every kTfChunk k8 steps (32 k), added in

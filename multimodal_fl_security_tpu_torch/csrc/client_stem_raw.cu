@@ -287,43 +287,6 @@ constexpr int kTfChunks = kDepth / 8 / kTfPromote;
 static_assert(kTfSmem <= kMftMaxSmem, "one block an SM");
 static_assert(kTfChunks == 4, "the chunk sequence below is written for 4");
 
-// d (+)= A (64 x 8) B^T (B: 64 x 8), both K-major in shared memory: tf32 in,
-// f32 sums. kAccumulate false writes d (scale-d 0) and reads nothing of it.
-template <bool kAccumulate>
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
-                                               uint64_t db) {
-#define MFT_WGMMA_N64(C)                                                       \
-  asm volatile(                                                                \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                              \
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"                  \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-      "%30, %31}, %32, %33, p, 1, 1;\n}\n"                                     \
-      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]),         \
-        C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]),     \
-        C(d[14]), C(d[15]), C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]),  \
-        C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]), C(d[26]), C(d[27]),  \
-        C(d[28]), C(d[29]), C(d[30]), C(d[31])                                 \
-      : "l"(da), "l"(db), "r"(kAccumulate ? 1 : 0))
-#define MFT_RW(x) "+f"(x)
-#define MFT_W(x) "=f"(x)
-  if constexpr (kAccumulate) {
-    MFT_WGMMA_N64(MFT_RW);
-  } else {
-    MFT_WGMMA_N64(MFT_W);
-  }
-#undef MFT_W
-#undef MFT_RW
-#undef MFT_WGMMA_N64
-}
-
-// Keeps the compiler from moving reads of d above the wgmma wait that
-// completes the wgmmas writing it.
-__device__ __forceinline__ void fence_operands(float (&d)[32]) {
-#pragma unroll
-  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
-}
-
 // One chunk's 3 kTfPromote wgmmas into d: for each k8 step, A_lo W_hi,
 // A_hi W_lo, then A_hi W_hi (the small terms first); the first starts d
 // afresh.
@@ -335,13 +298,14 @@ __device__ __forceinline__ void tf32_chunk(float (&d)[32], int ch,
     const int k = (ch * kTfPromote + s) * 2 * kTfLbo;  // a k8 step: two
     const uint64_t dah = mft_wgmma_desc(ah + k, kTfLbo, kTfSbo);
     const uint64_t dbh = mft_wgmma_desc(bh + k, kTfLbo, kTfSbo);
+    const uint64_t dal = mft_wgmma_desc(al + k, kTfLbo, kTfSbo);
     if (s == 0) {
-      wgmma_tf32_n64<false>(d, mft_wgmma_desc(al + k, kTfLbo, kTfSbo), dbh);
+      mft_wgmma_tf32_n64<false>(d, dal, dbh);
     } else {
-      wgmma_tf32_n64<true>(d, mft_wgmma_desc(al + k, kTfLbo, kTfSbo), dbh);
+      mft_wgmma_tf32_n64<true>(d, dal, dbh);
     }
-    wgmma_tf32_n64<true>(d, dah, mft_wgmma_desc(bl + k, kTfLbo, kTfSbo));
-    wgmma_tf32_n64<true>(d, dah, dbh);
+    mft_wgmma_tf32_n64<true>(d, dah, mft_wgmma_desc(bl + k, kTfLbo, kTfSbo));
+    mft_wgmma_tf32_n64<true>(d, dah, dbh);
   }
 }
 
@@ -453,25 +417,25 @@ stem_raw_tf32_kernel(MftView x, MftView w, float* __restrict__ out,
     tf32_chunk(p1, 1, ah, al, bh, bl);
     mft_wgmma_commit();
     mft_wgmma_wait<1>();
-    fence_operands(p0);
+    mft_wgmma_fence_operands(p0);
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = p0[e];
     mft_wgmma_fence();
     tf32_chunk(p0, 2, ah, al, bh, bl);
     mft_wgmma_commit();
     mft_wgmma_wait<1>();
-    fence_operands(p1);
+    mft_wgmma_fence_operands(p1);
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] += p1[e];
     mft_wgmma_fence();
     tf32_chunk(p1, 3, ah, al, bh, bl);
     mft_wgmma_commit();
     mft_wgmma_wait<1>();
-    fence_operands(p0);
+    mft_wgmma_fence_operands(p0);
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] += p0[e];
     mft_wgmma_wait<0>();
-    fence_operands(p1);
+    mft_wgmma_fence_operands(p1);
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] += p1[e];
 

@@ -3,26 +3,30 @@
 
 On the CPU, the kernel's arithmetic is emulated in numpy as
 ``tests/test_torch_port_conv_tf32.py`` emulates its sisters: every f32
-operand split into hi = tf32(a) and lo = tf32(a - hi) (``tf32_rne``), lo hi
-+ hi lo + hi hi summed in f32, each of the kernel's chunks (one (kh, kw)
-of one half of the output channels co, 4 k8 steps) into a fresh sum added
-to the total in the kernel's order: co in [0, 32), the nine taps, then co
-in [32, 64). The emulated dX is held to the JAX package by way of the stem:
-it goes through the stem's ``conv_wgrad_plain``, and the stem's weight
-gradient is held to the JAX side's folded gradient of one step
-(``jax_step``), as ``test_step_grads_match_folded_jax_grads`` holds the
-port's. Its error against f64 is held to at most 4x that of the f32 plain
-version (``conv2d_input``), and on small integers it equals the plain
-version bitwise.
+operand split into hi = tf32(a) and lo = tf32(a - hi) (``tf32_rne``); each
+of the kernel's chunks (one (kh, kw) of one stage of 16 output channels
+co, 2 k8 steps) sums lo hi + hi lo + hi hi in a fresh f32 sum, added to
+the total in the kernel's order: the stages co in [0, 16), [16, 32),
+[32, 48), [48, 64), each over the nine taps. The
+emulated dX is held to the JAX package by way of the stem: it goes through
+the stem's ``conv_wgrad_plain``, and the stem's weight gradient is held to
+the JAX side's folded gradient of one step (``jax_step``), as
+``test_step_grads_match_folded_jax_grads`` holds the port's. Its error
+against f64 is held to at most 4x that of the f32 plain version
+(``conv2d_input``), and on small integers it equals the plain version
+bitwise.
 
-The ``cuda`` cases run the kernel on the card at small ragged shapes and at
-C = 100, B = 32, with the maps NCHW or NHWC and dX NHWC or NCHW (the main
-path's layouts, read and written with vector accesses, and strided ones,
-one element at a time): within rtol 1e-5 and atol 1e-5 of max|reference|
-of the exact (f64) gradient, the error against it at most 4x the f32 plain
-version's, two calls bitwise equal, bitwise the plain version on small
-integers, one ``conv2_dgrad_tf32`` launch a call. An f32 input gradient
-off conv2's geometry raises before any launch. They skip without a card.
+The ``cuda`` cases run the kernel on the card at small ragged shapes, at
+C = 5, B = 33 (an item of 256 stacked rows straddles the samples, and the
+persistent grid's last items fall unevenly) and at C = 100, B = 32, with
+the maps NCHW or NHWC and dX NHWC or NCHW (the main path's layouts, read
+and written with vector accesses, and strided ones, one element at a time),
+and once with a pooled map that the relu kills everywhere (dX = 0): within
+rtol 1e-5 and atol 1e-5 of max|reference| of the exact (f64) gradient, the
+error against it at most 4x the f32 plain version's, two calls bitwise
+equal, bitwise the plain version on small integers, one ``conv2_dgrad_tf32``
+launch a call. An f32 input gradient off conv2's geometry raises before any
+launch. They skip without a card.
 """
 
 import numpy as np
@@ -55,7 +59,6 @@ from test_torch_port_conv_tf32 import (  # noqa: F401 (cuda: a fixture)
     counted,
     cuda,
     port_step_conv2,
-    products_3xtf32,
     split,
 )
 
@@ -64,21 +67,23 @@ def conv2_dgrad_3xtf32(dp, h, arg, w):
     """``conv2_dgrad_tf32_kernel``'s arithmetic on conv2's pooled gradient,
     map and argmax [C, B, 64, 7, 7] and weights [C, 64, 32, 3, 3] (torch
     tensors): dX[(y, x), ci] = sum over (co, kh, kw) of dZ[(y + 1 - kh,
-    x + 1 - kw), co] W[co, ci, kh, kw] in 3xTF32, each (channel half, tap)
-    chunk summed afresh and added to the total in the kernel's order.
-    Returns dX [C, B, 32, 14, 14] as numpy f32."""
+    x + 1 - kw), co] W[co, ci, kh, kw] in 3xTF32, each (stage of 16
+    channels, tap) chunk summed afresh and added to the total in the
+    kernel's order. Returns dX [C, B, 32, 14, 14] as numpy f32."""
     c, b = dp.shape[:2]
     dz = np.pad(_dense_dz(dp, h, arg, 14, 14).numpy(),
                 ((0, 0), (0, 0), (0, 0), (1, 1), (1, 1)))  # [C, B, 64, 16, 16]
     wn = w.float().numpy()
     dx = np.zeros((c, b, 196, 32), np.float32)
-    for half in range(2):
-        co = slice(32 * half, 32 * half + 32)
+    for stage in range(4):
+        co = slice(16 * stage, 16 * stage + 16)
         for kh in range(3):
             for kw in range(3):
                 a = dz[:, :, co, 2 - kh:16 - kh, 2 - kw:16 - kw]
-                a = a.reshape(c, b, 32, 196).transpose(0, 1, 3, 2)
-                dx += products_3xtf32(a, wn[:, None, co, :, kh, kw])
+                a = a.reshape(c, b, 16, 196).transpose(0, 1, 3, 2)
+                (ah, al) = split(a)
+                (bh, bl) = split(wn[:, None, co, :, kh, kw])
+                dx += ((al @ bh) + (ah @ bl)) + (ah @ bh)
     return np.ascontiguousarray(
         dx.reshape(c, b, 14, 14, 32).transpose(0, 1, 4, 2, 3))
 
@@ -93,11 +98,13 @@ def dgrad_f64(dp, h, arg, w):
     return _ungrouped(dx, c)
 
 
-def conv2_operands(gen, c, b, device="cpu", ints=False, maps_nhwc=False):
+def conv2_operands(gen, c, b, device="cpu", ints=False, maps_nhwc=False,
+                   dead=False):
     """conv2's input-gradient operands: the pooled map and argmax of the
     plain forward on a random post-relu input (NCHW maps, or NHWC), a
     pooled gradient of the map's strides, and w [C, 64, 32, 3, 3];
-    ``ints``: small integers."""
+    ``ints``: small integers; ``dead``: a bias that the relu turns into a
+    zero map (h = 0 everywhere, so dX = 0)."""
     def draw(shape, lo, hi, scale):
         if ints:
             return torch.randint(lo, hi, shape, generator=gen,
@@ -108,7 +115,7 @@ def conv2_operands(gen, c, b, device="cpu", ints=False, maps_nhwc=False):
     if not ints:
         x = torch.relu(x)
     w = draw((c, 64, 32, 3, 3), -2, 3, 0.3)
-    bias = draw((c, 64), -2, 3, 0.1)
+    bias = draw((c, 64), -2, 3, 0.1) - (1e4 if dead else 0.0)
     h, arg = conv_fwd_plain(x, w, bias, channels_last=maps_nhwc)
     dp = torch.empty_like(h).copy_(draw(h.shape, -4, 5, 0.1))
     return dp, h, arg, w
@@ -179,21 +186,27 @@ def test_conv2_dgrad_3xtf32_exact_on_integers():
 
 # ---------------------------------------------------------------- CUDA
 
-#: (C, B): B = 1, 5 and 7 leave a block short of its 4 samples
-CASES = [(1, 1), (3, 5), (2, 7), (100, 32)]
+#: (C, B, relu): B = 1, 5 and 7 end each client inside a 64-row tile; C =
+#: 5, B = 33 puts an odd sample in a client's last 256-row item and leaves
+#: the persistent grid's last items uneven; "dead": a pooled map that the
+#: relu kills everywhere, so dX = 0 (the integer operands stay live)
+CASES = [(1, 1, "live"), (3, 5, "live"), (2, 7, "live"), (100, 32, "live"),
+         (5, 33, "live"), (3, 5, "dead")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_nhwc", [True, False])
 @pytest.mark.parametrize("maps_nhwc", [False, True])
-@pytest.mark.parametrize("c,b", CASES)
-def test_conv2_dgrad_tf32_matches_f64(cuda, c, b, maps_nhwc, out_nhwc):
+@pytest.mark.parametrize("c,b,relu", CASES)
+def test_conv2_dgrad_tf32_matches_f64(cuda, c, b, relu, maps_nhwc,
+                                      out_nhwc):
     """f32 conv2 input gradients run conv2_dgrad_tf32 once a call: within
     the f32 tolerance of the exact (f64) gradient, its error there at most
     4x the f32 plain version's, two calls bitwise equal, and on small
     integers bitwise the plain version (without cuDNN). The main path's
-    layouts are NCHW maps and an NHWC dX."""
-    dp, h, arg, w = conv2_operands(cuda, c, b, "cuda", maps_nhwc=maps_nhwc)
+    layouts are NCHW maps and an NHWC dX. A dead map gives dX = 0."""
+    dp, h, arg, w = conv2_operands(cuda, c, b, "cuda", maps_nhwc=maps_nhwc,
+                                   dead=relu == "dead")
     got, launches = counted(lambda: conv_dgrad(
         dp, h, arg, w, (14, 14), channels_last=out_nhwc))
     again = conv_dgrad(dp, h, arg, w, (14, 14), channels_last=out_nhwc)
@@ -210,11 +223,13 @@ def test_conv2_dgrad_tf32_matches_f64(cuda, c, b, maps_nhwc, out_nhwc):
     assert got.shape == (c, b, 32, 14, 14) and got.dtype == torch.float32
     assert got.stride() == plain.stride()
     assert torch.equal(got, again)  # fixed-order sums
+    if relu == "dead":
+        assert not bool((h > 0).any()) and not bool(got.any())
     close(got, ref)
     err, err_plain = (float((v.double() - ref).abs().max())
                       for v in (got, plain))
-    print(f"[conv2_dgrad_tf32 C={c} B={b} maps NHWC {maps_nhwc} dX NHWC "
-          f"{out_nhwc}] max|kernel-plain| "
+    print(f"[conv2_dgrad_tf32 C={c} B={b} {relu} maps NHWC {maps_nhwc} dX "
+          f"NHWC {out_nhwc}] max|kernel-plain| "
           f"{float((got - plain).abs().max()):.3g}; vs f64: kernel "
           f"{err:.3g}, plain {err_plain:.3g}")
     assert err <= F64_FACTOR * err_plain, (err, err_plain)
